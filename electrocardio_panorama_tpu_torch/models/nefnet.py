@@ -1,0 +1,172 @@
+"""Nef-Net, eval path: the reference `Model_nefnet`
+(codes/network/model_nefnet.py:63-218) as functions over flat
+{torch-style name: tensor} dicts, split like the JAX package's
+models/nefnet.py into the two halves the panorama path runs:
+
+  encode_latents : few-view ECG -> (z1 per lead, z2 per lead, latent_all),
+                   once per batch;
+  decode_views   : latent x V query viewpoints -> V waveforms in one batched
+                   decoder pass (the reference loops over views,
+                   model_nefnet.py:185-190).
+
+`NefNet` is the module tree that fixes the parameter and BN-buffer names:
+its `state_dict()` keys are exactly the reference checkpoint's, so
+`load_state_dict` is the weight transfer. The dead `w_feature_extractor`
+exists for key compatibility (model_nefnet.py:79-83) and is never applied.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+from torch import nn
+
+from electrocardio_panorama_tpu_torch.models.blocks import (
+    BatchNorm,
+    Conv,
+    conv,
+    double_conv,
+    double_conv_apply,
+    model_block,
+    model_block_apply,
+)
+from electrocardio_panorama_tpu_torch.models.encoder import encoder, encoder_apply
+from electrocardio_panorama_tpu_torch.ops import (
+    angular_encode,
+    conv1d,
+    conv_transpose1d_k2s2,
+    linear,
+    roi_align_1d,
+    roi_reverse_1d,
+    theta_feature_dim,
+    upsample_linear_x2,
+)
+
+ROI_SEGMENTS = 7
+ALIGN_SIZE = 16
+SPATIAL_SCALE = 128 / 512
+SEQ_LEN = 512
+FEAT_LEN = 128
+
+
+class NefNetLatents(NamedTuple):
+    z1: torch.Tensor          # [B, 128*L, 128]  electrocardio-field (patient) half
+    z2: torch.Tensor          # [B, 128*L, 128]  morphology half (post roi-reverse)
+    z1_mean: torch.Tensor     # [B, 128, 128]
+    z2_mean: torch.Tensor     # [B, 128, 128]
+    latent_all: torch.Tensor  # [B, 256, 128]
+
+
+class NefNet(nn.Module):
+    """Parameter/buffer tree of Model_nefnet under the reference's names."""
+
+    def __init__(self, lead_num: int, theta_encoder_len: int = 1):
+        super().__init__()
+        L = lead_num
+        tdim = theta_feature_dim(theta_encoder_len)
+        g7 = ROI_SEGMENTS * L
+        self.W_encoder = encoder(L, 128)
+        self.mlp1 = Conv((128, tdim), 128, fan_in=tdim)
+        self.mlp2 = Conv((256, tdim), 256, fan_in=tdim)
+        self.w_feature_extractor = nn.ModuleDict({"0": conv(128, 128, 3, bias=True)})
+        self.w_conv = nn.ModuleDict({"0": model_block(128 * L, 128 * L, L)})
+        self.z1_conv = nn.ModuleDict({"0": model_block(64 * L, 128 * L, L)})
+        self.z2_conv1 = nn.ModuleDict({"0": model_block(64 * L, 128 * L, L)})
+        self.z2_conv2 = nn.ModuleDict({
+            "0": model_block(128 * g7, 128 * g7, g7),
+            # ConvTranspose1d [in, out/groups, k]; torch's fan_in is (out/groups)*k
+            "1": Conv((128 * g7, 64, 2), 64 * g7, fan_in=64 * 2),
+            "2": model_block(64 * g7, 128 * g7, g7),
+        })
+        # decoder keys follow the reference nn.Sequential: 0 and 2 are Upsample
+        self.decoder = nn.ModuleDict({
+            "1": double_conv(256, 128),
+            "3": double_conv(128, 64),
+            "4": conv(1, 64, 3, bias=True),
+        })
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        for m in self.modules():
+            if isinstance(m, (Conv, BatchNorm)):
+                m.reset(generator)
+
+    def flat(self) -> tuple[dict, dict]:
+        """(params, bn_state) flat dicts of detached tensors."""
+        params = {k: v.detach() for k, v in self.named_parameters()}
+        state = {k: v.detach() for k, v in self.named_buffers()}
+        return params, state
+
+
+def init_nefnet(generator: torch.Generator, *, lead_num: int, theta_encoder_len: int = 1,
+                dtype=torch.float32, device="cpu") -> tuple[dict, dict]:
+    """Returns (params, state): flat dicts keyed by torch-style names. The
+    draws come from `generator` (a CPU generator) and then move to `device`."""
+    net = NefNet(lead_num, theta_encoder_len)
+    net.reset_parameters(generator)
+    params, state = net.flat()
+    params = {k: v.to(device=device, dtype=dtype) for k, v in params.items()}
+    state = {k: v.to(device=device, dtype=dtype if v.is_floating_point() else v.dtype)
+             for k, v in state.items()}
+    return params, state
+
+
+# -------------------------------------------------------------------- decoder
+def decoder_apply(p: dict, s: dict, x):
+    """Eval mode. Upsample -> DoubleConv(256,128) -> Upsample ->
+    DoubleConv(128,64) -> Conv(64,1): x [N, 256, 128] -> [N, 1, 512] logits."""
+    h = double_conv_apply(p, s, "decoder.1.double_conv", upsample_linear_x2(x))
+    h = double_conv_apply(p, s, "decoder.3.double_conv", upsample_linear_x2(h))
+    return conv1d(h, p["decoder.4.weight"], p["decoder.4.bias"], padding=1)
+
+
+def query_gates(p: dict, thetas, *, theta_encoder_len: int = 1):
+    """Angular encoding + mlp2 gate of query viewpoints: [..., 2] -> [..., 256]."""
+    return linear(angular_encode(thetas, theta_encoder_len), p["mlp2.weight"], p["mlp2.bias"])
+
+
+def decode_views(p: dict, s: dict, latent_all, view_thetas, *, theta_encoder_len: int = 1):
+    """latent_all [B, 256, 128], view_thetas [B, V, 2] -> [B, V, 512]: all V
+    views decode as one [B*V, 256, 128] decoder batch."""
+    B, V = view_thetas.shape[0], view_thetas.shape[1]
+    gates = query_gates(p, view_thetas, theta_encoder_len=theta_encoder_len)  # [B, V, 256]
+    x = gates[..., None] * latent_all[:, None]  # [B, V, 256, 128]
+    out = decoder_apply(p, s, x.reshape(B * V, 256, FEAT_LEN))
+    return torch.sigmoid(out / 3.0).reshape(B, V, SEQ_LEN)
+
+
+# -------------------------------------------------------------------- encoder
+def encode_latents(p: dict, x, input_thetas, rois, *, lead_num: int, theta_encoder_len: int = 1):
+    """Eval-mode few-view encode: x [B, L, 512], input_thetas [B, L, 2],
+    rois [B, 7, 2] -> NefNetLatents."""
+    L = lead_num
+    B = x.shape[0]
+    w = encoder_apply(p, "W_encoder", x, lead_num=L)  # [B, 128L, 128]
+
+    gate1 = linear(angular_encode(input_thetas, theta_encoder_len),
+                   p["mlp1.weight"], p["mlp1.bias"])  # [B, L, 128]
+    w = (w.reshape(B, L, 128, FEAT_LEN) * gate1[..., None]).reshape(B, 128 * L, FEAT_LEN)
+    w = model_block_apply(p, "w_conv.0", w, groups=L)
+
+    # per-lead split into z1 (first 64 ch) / z2 (last 64 ch) (model_nefnet.py:127-131)
+    w4 = w.reshape(B, L, 128, FEAT_LEN)
+    z1 = w4[:, :, :64].reshape(B, 64 * L, FEAT_LEN)
+    z2 = w4[:, :, 64:].reshape(B, 64 * L, FEAT_LEN)
+    z1 = model_block_apply(p, "z1_conv.0", z1, groups=L)   # [B, 128L, 128]
+    z2 = model_block_apply(p, "z2_conv1.0", z2, groups=L)  # [B, 128L, 128]
+
+    a = roi_align_1d(z2, rois, size=ALIGN_SIZE, spatial_scale=SPATIAL_SCALE)  # [B, 128L, 7, 16]
+    # torch .view row-major: channels and segments interleave across the
+    # group boundaries because 7 does not divide 128 (model_nefnet.py:137)
+    a = a.reshape(B, 128 * L * ROI_SEGMENTS, ALIGN_SIZE)
+    g7 = ROI_SEGMENTS * L
+    a = model_block_apply(p, "z2_conv2.0", a, groups=g7)
+    a = conv_transpose1d_k2s2(a, p["z2_conv2.1.weight"], p["z2_conv2.1.bias"], groups=g7)
+    a = model_block_apply(p, "z2_conv2.2", a, groups=g7)  # [B, 128L*7, 32]
+    z2_grid = a.reshape(B, 128 * L, ROI_SEGMENTS, 2 * ALIGN_SIZE)
+    z2 = roi_reverse_1d(z2_grid, rois, spatial_scale=SPATIAL_SCALE, out_len=FEAT_LEN)
+
+    z1_mean = z1.reshape(B, L, 128, FEAT_LEN).mean(dim=1)
+    z2_mean = z2.reshape(B, L, 128, FEAT_LEN).mean(dim=1)
+    latent_all = torch.cat([z1_mean, z2_mean], dim=1)  # [B, 256, 128]
+    return NefNetLatents(z1, z2, z1_mean, z2_mean, latent_all)

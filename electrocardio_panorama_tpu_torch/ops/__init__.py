@@ -1,0 +1,29 @@
+"""Compute ops of the port: convs, resampling, ROI ops, angular encoding."""
+
+from electrocardio_panorama_tpu_torch.ops.convs import (
+    batch_norm1d,
+    conv1d,
+    conv_transpose1d_k2s2,
+    dropout,
+    full_f32,
+    linear,
+    max_pool1d,
+)
+from electrocardio_panorama_tpu_torch.ops.resample import upsample_linear_x2
+from electrocardio_panorama_tpu_torch.ops.roi import roi_align_1d, roi_reverse_1d
+from electrocardio_panorama_tpu_torch.ops.theta import angular_encode, theta_feature_dim
+
+__all__ = [
+    "angular_encode",
+    "theta_feature_dim",
+    "conv1d",
+    "conv_transpose1d_k2s2",
+    "max_pool1d",
+    "linear",
+    "dropout",
+    "batch_norm1d",
+    "full_f32",
+    "upsample_linear_x2",
+    "roi_align_1d",
+    "roi_reverse_1d",
+]

@@ -1,0 +1,142 @@
+"""Electrocardio Panorama synthesis: the north-star workload.
+
+Reference demo.ipynb builds a dense 84-view grid (7 theta x 12 phi) and
+decodes each view in turn (model_nefnet.py:185-190). Here every batch encodes
+once and decodes all its views together; with `use_fused=True` the decode is
+the streamed-basis CUDA kernel (ops/kernels/decoder_fused.py).
+"""
+
+from __future__ import annotations
+
+import os
+
+import numpy as np
+import torch
+
+from electrocardio_panorama_tpu_torch.ops import angular_encode
+from electrocardio_panorama_tpu_torch.ops.kernels.decoder_fused import fold_decoder_bn, fused_decode_views
+from electrocardio_panorama_tpu_torch.utils import resolve_device
+
+# Outputs stay on the device within a window and drain to the host once the
+# window passes this many bytes: no per-batch sync, and device memory stays
+# O(window) whatever the dataset size.
+_DEVICE_ACCUM_BYTES = 256 << 20
+
+
+def theta_grid(n_theta: int = 7, n_phi: int = 12) -> np.ndarray:
+    """The demo notebook's dense viewpoint grid (demo.ipynb cell 2) at its
+    default 7x12=84 size; other densities keep the same endpoint layout."""
+    if n_theta == 7:
+        thetas = np.array([np.pi / 24] + [np.pi * k / 6 for k in range(1, 6)] + [np.pi * 23 / 24])
+    else:
+        thetas = np.linspace(np.pi / 24, np.pi * 23 / 24, n_theta)
+    phis = -np.pi + np.arange(n_phi) * (np.pi / 6 if n_phi == 12 else 2 * np.pi / n_phi)
+    grid = np.stack(np.meshgrid(thetas, phis, indexing="ij"), axis=-1)  # [T, P, 2]
+    return grid.reshape(-1, 2).astype(np.float32)
+
+
+class PanoramaGenerator:
+    """Encode-once / decode-many panorama renderer (demo.ipynb Generator).
+
+    `use_fused=True` decodes with the streamed-basis kernel (BN folded, the
+    gate/upsample/conv1 head as a rank-J basis mix). `compute_dtype`
+    bfloat16 runs the encode in bf16 and the kernel with bf16 storage and
+    float32 accumulation; float32 keeps full precision throughout.
+    `plain=True` runs the kernel's plain PyTorch version instead, on the same
+    device, to hold the kernel against it.
+    """
+
+    def __init__(self, model_def, params, bn_state, *, compute_dtype=torch.float32,
+                 use_fused: bool = False, v_tile: int = 16, device=None, plain: bool = False):
+        self.model = model_def
+        self.device = resolve_device(device)
+        self.dtype = compute_dtype
+        self.use_fused = use_fused
+        self.v_tile = v_tile
+        self.plain = plain
+        params = {k: v.to(self.device) for k, v in params.items()}
+        self.bn_state = {k: v.to(self.device) for k, v in bn_state.items()}
+        self.params = {k: v.to(compute_dtype) if v.is_floating_point() else v
+                       for k, v in params.items()}
+        self._folded = (fold_decoder_bn(params, self.bn_state, dtype=compute_dtype)
+                        if use_fused else None)
+
+    @torch.no_grad()
+    def encode(self, data, input_theta, rois):
+        return self.model.encode(
+            self.params, torch.as_tensor(data, device=self.device).to(self.dtype),
+            torch.as_tensor(input_theta, device=self.device).to(self.dtype),
+            torch.as_tensor(rois, device=self.device),
+        ).latent_all
+
+    @torch.no_grad()
+    def render(self, data, input_theta, rois, views) -> torch.Tensor:
+        """data [B,L,512], views [V,2] (shared) or [B,V,2] -> [B,V,512] on the device."""
+        latent = self.encode(data, input_theta, rois)
+        v = torch.as_tensor(views, device=self.device).to(self.dtype)
+        if v.ndim == 2:
+            v = v[None].expand(latent.shape[0], *v.shape)
+        if self._folded is not None:
+            enc = angular_encode(v, self.model.theta_encoder_len)
+            return fused_decode_views(self._folded, latent, enc=enc, v_tile=self.v_tile,
+                                      plain=self.plain)
+        return self.model.decode_views(self.params, self.bn_state, latent, v)
+
+    def render_dataset(self, loader, views: np.ndarray, out_path: str | None = None,
+                       max_batches: int | None = None):
+        """demo.ipynb cells 3-4: render every test batch under the dense grid,
+        save all_theta_data.npz (rest_out + rois)."""
+        host, outs, rois_all, pending = [], [], [], 0
+        for bi, batch in enumerate(loader):
+            if max_batches is not None and bi >= max_batches:
+                break
+            out = self.render(batch["data"], batch["input_theta"], batch["rois"], views)
+            outs.append(out)
+            rois_all.append(batch["rois"])
+            pending += out.numel() * out.element_size()
+            if pending >= _DEVICE_ACCUM_BYTES:
+                host.extend(o.float().cpu().numpy() for o in outs)
+                outs, pending = [], 0
+        host.extend(o.float().cpu().numpy() for o in outs)
+        rest_out = np.concatenate(host) if host else np.zeros((0, len(views), 512), np.float32)
+        rois_cat = np.concatenate(rois_all) if rois_all else np.zeros((0, 7, 2), np.int64)
+        if out_path:
+            os.makedirs(os.path.dirname(out_path) or ".", exist_ok=True)
+            np.savez(out_path, rest_out=rest_out, rois=rois_cat)
+        return rest_out, rois_cat
+
+
+def plot_panorama(rest_out: np.ndarray, rois: np.ndarray, sample: int, path: str,
+                  n_theta: int = 7, n_phi: int = 12) -> None:
+    """The 12x7 matplotlib grid (demo.ipynb cells 5-6), time-trimmed to
+    rois[-1,0]-20."""
+    import matplotlib
+
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    end = max(int(rois[sample, -1, 0]) - 20, 8)
+    waves = rest_out[sample].reshape(n_theta, n_phi, -1)
+    fig, axes = plt.subplots(n_phi, n_theta, figsize=(2 * n_theta, 1.2 * n_phi),
+                             sharex=True, sharey=True, squeeze=False)
+    for i in range(n_theta):
+        for j in range(n_phi):
+            axes[j][i].plot(waves[i, j, :end], linewidth=0.8)
+            axes[j][i].set_xticks([])
+            axes[j][i].set_yticks([])
+    fig.tight_layout()
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    fig.savefig(path, format="png", dpi=120)
+    plt.close(fig)
+
+
+def render_full_record(gen: PanoramaGenerator, dataset, record_index: int,
+                       views: np.ndarray, rng: np.random.Generator | None = None):
+    """Dense panorama over every beat of one record: the beat axis is the
+    batch axis. Returns ([n_beats, V, 512] tensor, batch)."""
+    from electrocardio_panorama_tpu_torch.data.pipeline import collate
+
+    rng = rng or np.random.default_rng(0)
+    n = dataset.num_beats(record_index)
+    batch = collate([dataset.get_beat(record_index, b, rng) for b in range(n)])
+    return gen.render(batch["data"], batch["input_theta"], batch["rois"], views), batch

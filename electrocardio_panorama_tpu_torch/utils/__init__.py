@@ -1,0 +1,4 @@
+from electrocardio_panorama_tpu_torch.utils.device import resolve_device
+from electrocardio_panorama_tpu_torch.utils.seeding import seed_everything
+
+__all__ = ["resolve_device", "seed_everything"]
