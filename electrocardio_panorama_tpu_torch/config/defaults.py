@@ -71,9 +71,12 @@ def get_default_cfg() -> Node:
     # ------------------------------------------------------------------- TPU
     # The JAX package's execution group, kept key-for-key so every config
     # (e.g. configs/dense_sweep_v5e8.yml) loads unchanged in both packages.
-    # The port reads param_dtype and compute_dtype ("float32" | "bfloat16");
-    # the other keys select JAX-side kernels and meshes and are accepted here
-    # without effect until their port slices land (ROADMAP.md).
+    # The port reads param_dtype and compute_dtype ("float32" | "bfloat16"),
+    # steps_per_epoch, profile_dir (a torch.profiler trace), check_nans,
+    # eval_decoder, train_encoder, encoder_ckpt and eval_encoder
+    # (training/solver.py).
+    # mesh_shape non-empty, checkpoint_backend 'orbax' and train_decoder
+    # 'fused' raise NotImplementedError until their slices land (ROADMAP.md).
     cfg.TPU = Node()
     cfg.TPU.mesh_shape = []
     cfg.TPU.mesh_axes = ["data"]
@@ -88,5 +91,7 @@ def get_default_cfg() -> Node:
     cfg.TPU.train_encoder = "auto"
     cfg.TPU.encoder_ckpt = "tower"
     cfg.TPU.eval_encoder = "xla"
+    # accepted without effect: the port draws its dropout masks from a
+    # torch.Generator per step, seeded from (seed, epoch, step)
     cfg.TPU.rng_impl = "rbg"
     return cfg

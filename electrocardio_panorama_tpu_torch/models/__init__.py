@@ -4,31 +4,41 @@ from functools import partial
 
 import torch
 
+from electrocardio_panorama_tpu_torch.models.losses import l1, loss_wrapper, mse, mse_per_lead
 from electrocardio_panorama_tpu_torch.models.nefnet import (
     NefNet,
     NefNetLatents,
     decode_views,
     decoder_apply,
     encode_latents,
+    gen_ecg,
     init_nefnet,
+    nefnet_apply,
     query_gates,
 )
 
 __all__ = [
     "build_model",
+    "build_loss",
     "NefNet",
     "NefNetDef",
     "NefNetLatents",
     "init_nefnet",
+    "nefnet_apply",
     "encode_latents",
     "decoder_apply",
     "decode_views",
     "query_gates",
+    "gen_ecg",
+    "loss_wrapper",
+    "l1",
+    "mse",
+    "mse_per_lead",
 ]
 
 
 class NefNetDef:
-    """Bound model definition: init/encode/decode over static config."""
+    """Bound model definition: init/apply/encode/decode over static config."""
 
     def __init__(self, lead_num: int, theta_encoder_len: int = 1, dtype=torch.float32):
         self.lead_num = lead_num
@@ -36,9 +46,11 @@ class NefNetDef:
         self.dtype = dtype
         self.init = partial(init_nefnet, lead_num=lead_num,
                             theta_encoder_len=theta_encoder_len, dtype=dtype)
+        self.apply = partial(nefnet_apply, lead_num=lead_num, theta_encoder_len=theta_encoder_len)
         self.encode = partial(encode_latents, lead_num=lead_num,
                               theta_encoder_len=theta_encoder_len)
         self.decode_views = partial(decode_views, theta_encoder_len=theta_encoder_len)
+        self.gen_ecg = partial(gen_ecg, lead_num=lead_num, theta_encoder_len=theta_encoder_len)
 
 
 def build_model(cfg):
@@ -56,3 +68,12 @@ def build_model(cfg):
         "default config ships with the reference's unregistered 'modelv2', so "
         "set MODEL.model in your yml or overrides)"
     )
+
+
+def build_loss(cfg):
+    """Loss registry (reference network/__init__.py:15-24)."""
+    if cfg.MODEL.loss == "v1":
+        return loss_wrapper
+    if cfg.MODEL.loss == "mse":
+        return lambda pred, target, *a, **k: mse(pred, target)
+    raise ValueError("build loss: loss name error")

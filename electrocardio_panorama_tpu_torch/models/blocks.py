@@ -1,5 +1,5 @@
 """Building blocks shared by the encoder and Nef-Net: a module tree that
-fixes the torch-style checkpoint keys, and eval-mode functions over the flat
+fixes the torch-style checkpoint keys, and eval/train functions over the flat
 {name: tensor} dicts that the tree's `named_parameters()` / `named_buffers()`
 give (the JAX package's models/blocks.py).
 
@@ -18,7 +18,7 @@ import torch
 from torch import nn
 
 from electrocardio_panorama_tpu_torch.models import init as inits
-from electrocardio_panorama_tpu_torch.ops import batch_norm1d, conv1d
+from electrocardio_panorama_tpu_torch.ops import batch_norm1d, conv1d, dropout, group_batch_norm1d
 
 DROPOUT_RATE = 0.2
 
@@ -86,14 +86,18 @@ def double_conv(in_ch: int, out_ch: int) -> nn.ModuleDict:
 
 
 # ----------------------------------------------------------------- apply
-def resnet_block_apply(p: dict, prefix: str, x, *, groups: int):
+# `mask` is the block's pre-scaled dropout mask (ops.dropout_mask), shaped
+# like the conv1 output; None, or train=False, is the eval block.
+def resnet_block_apply(p: dict, prefix: str, x, *, groups: int, mask=None, train: bool = False):
     out = torch.relu(conv1d(x, p[f"{prefix}.conv1.weight"], padding=3, groups=groups))
+    out = dropout(out, DROPOUT_RATE, mask, train)
     out = conv1d(out, p[f"{prefix}.conv2.weight"], padding=3, groups=groups)
     return torch.relu(out + x)
 
 
-def model_block_apply(p: dict, prefix: str, x, *, groups: int):
+def model_block_apply(p: dict, prefix: str, x, *, groups: int, mask=None, train: bool = False):
     out = torch.relu(conv1d(x, p[f"{prefix}.conv1.weight"], padding=1, groups=groups))
+    out = dropout(out, DROPOUT_RATE, mask, train)
     out = conv1d(out, p[f"{prefix}.conv2.weight"], padding=1, groups=groups)
     residual = x
     if out.shape[1] != x.shape[1]:
@@ -102,14 +106,29 @@ def model_block_apply(p: dict, prefix: str, x, *, groups: int):
     return torch.relu(out + residual)
 
 
-def double_conv_apply(p: dict, s: dict, prefix: str, x):
-    """Eval mode: BN normalizes with the running statistics."""
+def double_conv_apply(p: dict, s: dict, prefix: str, x, *, train: bool = False, bn_groups: int = 1):
+    """Eval: BN normalizes with the running statistics; returns the output.
+    Train: batch statistics, per group when `bn_groups` > 1 (x group-major,
+    ops.group_batch_norm1d); returns (out, state updates), where the updates
+    hold the new running stats and `num_batches_tracked + bn_groups`."""
+    updates = {}
 
     def bn(h, i):
-        return batch_norm1d(h, p[f"{prefix}.{i}.weight"], p[f"{prefix}.{i}.bias"],
-                            s[f"{prefix}.{i}.running_mean"], s[f"{prefix}.{i}.running_var"])
+        args = (h, p[f"{prefix}.{i}.weight"], p[f"{prefix}.{i}.bias"],
+                s[f"{prefix}.{i}.running_mean"], s[f"{prefix}.{i}.running_var"])
+        if not train:
+            return batch_norm1d(*args)
+        if bn_groups > 1:
+            out, m, v = group_batch_norm1d(*args, groups=bn_groups)
+        else:
+            out, m, v = batch_norm1d(*args, train=True)
+        updates[f"{prefix}.{i}.running_mean"] = m
+        updates[f"{prefix}.{i}.running_var"] = v
+        updates[f"{prefix}.{i}.num_batches_tracked"] = s[f"{prefix}.{i}.num_batches_tracked"] + bn_groups
+        return out
 
     out = conv1d(x, p[f"{prefix}.0.weight"], p[f"{prefix}.0.bias"], padding=1)
     out = torch.relu(bn(out, 1))
     out = conv1d(out, p[f"{prefix}.3.weight"], p[f"{prefix}.3.bias"], padding=1)
-    return torch.relu(bn(out, 4))
+    out = torch.relu(bn(out, 4))
+    return (out, updates) if train else out

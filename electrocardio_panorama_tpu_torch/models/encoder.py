@@ -30,10 +30,12 @@ def encoder(lead_num: int, init_channels: int = 128) -> nn.ModuleDict:
     })
 
 
-def encoder_apply(p: dict, prefix: str, x, *, lead_num: int):
-    """Eval mode: x [B, lead_num, 512] -> [B, 128*lead_num, 128]."""
+def encoder_apply(p: dict, prefix: str, x, *, lead_num: int, masks=None, train: bool = False):
+    """x [B, lead_num, 512] -> [B, 128*lead_num, 128]. In train mode `masks`
+    holds the three layer1 blocks' dropout masks, each [B, 128*lead_num, 128]."""
     h = torch.relu(conv1d(x, p[f"{prefix}.conv1.weight"], stride=2, padding=7, groups=lead_num))
     h = max_pool1d(h, kernel=3, stride=2, padding=1)
     for i in range(NUM_LAYER1_BLOCKS):
-        h = resnet_block_apply(p, f"{prefix}.layer1.{i}", h, groups=lead_num)
+        h = resnet_block_apply(p, f"{prefix}.layer1.{i}", h, groups=lead_num,
+                               mask=masks[i] if train else None, train=train)
     return h

@@ -5,12 +5,14 @@ from electrocardio_panorama_tpu_torch.ops.convs import (
     conv1d,
     conv_transpose1d_k2s2,
     dropout,
+    dropout_mask,
     full_f32,
+    group_batch_norm1d,
     linear,
     max_pool1d,
 )
 from electrocardio_panorama_tpu_torch.ops.resample import upsample_linear_x2
-from electrocardio_panorama_tpu_torch.ops.roi import roi_align_1d, roi_reverse_1d
+from electrocardio_panorama_tpu_torch.ops.roi import roi_align_1d, roi_align_ramp, roi_reverse_1d
 from electrocardio_panorama_tpu_torch.ops.theta import angular_encode, theta_feature_dim
 
 __all__ = [
@@ -21,9 +23,12 @@ __all__ = [
     "max_pool1d",
     "linear",
     "dropout",
+    "dropout_mask",
     "batch_norm1d",
+    "group_batch_norm1d",
     "full_f32",
     "upsample_linear_x2",
     "roi_align_1d",
+    "roi_align_ramp",
     "roi_reverse_1d",
 ]

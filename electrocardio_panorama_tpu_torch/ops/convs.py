@@ -61,14 +61,63 @@ def linear(x, weight, bias=None):
         return F.linear(x, weight, bias)
 
 
-def dropout(x, rate: float, generator: torch.Generator | None, train: bool):
-    """Inverted dropout; an identity at eval, which is all this slice runs."""
-    if not train or rate == 0.0 or generator is None:
+def dropout_mask(shape, rate: float, generator: torch.Generator, *, dtype=torch.float32,
+                 device=None) -> torch.Tensor:
+    """Pre-scaled inverted-dropout mask: 0 with probability `rate`, else
+    1/(1-rate), drawn from `generator` (which fixes the device)."""
+    keep = 1.0 - rate
+    u = torch.rand(shape, generator=generator, device=device or generator.device)
+    return (u < keep).to(dtype) * torch.tensor(1.0 / keep, dtype=dtype, device=u.device)
+
+
+def dropout(x, rate: float, mask: torch.Tensor | None, train: bool):
+    """Inverted dropout with an explicit pre-scaled mask (`dropout_mask`);
+    the identity at eval or without a mask. The product rounds to x's dtype,
+    as the JAX package's `x * mask` does."""
+    if not train or rate == 0.0 or mask is None:
         return x
-    raise NotImplementedError("train-mode dropout lands with the training slice (ROADMAP.md Queue A item 6)")
+    return x * mask.to(x.dtype)
 
 
-def batch_norm1d(x, scale, offset, running_mean, running_var, *, eps: float = 1e-5):
-    """Eval-mode BatchNorm1d on [B, C, L] with the running statistics."""
-    inv = torch.rsqrt(running_var + eps)
-    return (x - running_mean[None, :, None]) * (inv * scale)[None, :, None] + offset[None, :, None]
+def batch_norm1d(x, scale, offset, running_mean, running_var, *, train: bool = False,
+                 momentum: float = 0.1, eps: float = 1e-5):
+    """torch BatchNorm1d on [B, C, L]. Eval: normalizes with the running
+    statistics and returns the output. Train: normalizes with the biased batch
+    statistics over (B, L) and returns (out, new_running_mean,
+    new_running_var); the running variance takes the unbiased variance."""
+    if not train:
+        inv = torch.rsqrt(running_var + eps)
+        return (x - running_mean[None, :, None]) * (inv * scale)[None, :, None] + offset[None, :, None]
+    n = x.shape[0] * x.shape[2]
+    mean = x.mean(dim=(0, 2))
+    var = x.var(dim=(0, 2), unbiased=False)
+    unbiased = var * n / max(n - 1, 1)
+    new_mean = (1 - momentum) * running_mean + momentum * mean.detach()
+    new_var = (1 - momentum) * running_var + momentum * unbiased.detach()
+    inv = torch.rsqrt(var + eps)
+    out = (x - mean[None, :, None]) * (inv * scale)[None, :, None] + offset[None, :, None]
+    return out, new_mean, new_var
+
+
+def group_batch_norm1d(x, scale, offset, running_mean, running_var, *, groups: int,
+                       momentum: float = 0.1, eps: float = 1e-5):
+    """`groups` train-mode BatchNorm1d calls batched into one op: x is
+    group-major [G*B, C, L]; group g normalizes with its own biased batch
+    statistics, and the running statistics take the G sequential EMA updates
+    in closed form, r_G = (1-m)^G r_0 + m * sum_g (1-m)^(G-1-g) stat_g, in
+    the reference's order. Returns (out, new_running_mean, new_running_var)."""
+    gb, c, L = x.shape
+    b = gb // groups
+    xg = x.reshape(groups, b, c, L)
+    n = b * L
+    mean = xg.mean(dim=(1, 3))  # [G, C]
+    var = xg.var(dim=(1, 3), unbiased=False)
+    unbiased = var * n / max(n - 1, 1)
+    keep = (1 - momentum) ** groups
+    w = momentum * (1 - momentum) ** torch.arange(groups - 1, -1, -1, dtype=var.dtype, device=x.device)
+    new_mean = keep * running_mean + torch.tensordot(w, mean.detach(), dims=1)
+    new_var = keep * running_var + torch.tensordot(w, unbiased.detach(), dims=1)
+    inv = torch.rsqrt(var + eps)
+    out = (xg - mean[:, None, :, None]) * (inv * scale[None])[:, None, :, None] \
+        + offset[None, None, :, None]
+    return out.reshape(gb, c, L), new_mean, new_var

@@ -34,10 +34,13 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> str:
-    """`_build/lib{name}-{hash}.so` for `csrc/{name}.cu` and NVCC_FLAGS."""
+    """`_build/lib{name}-{hash}.so` for `csrc/{name}.cu`, the shared headers
+    `csrc/*.cuh` and NVCC_FLAGS."""
     h = hashlib.sha256()
-    with open(os.path.join(CSRC, f"{name}.cu"), "rb") as f:
-        h.update(f.read())
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for src in (f"{name}.cu", *headers):
+        with open(os.path.join(CSRC, src), "rb") as f:
+            h.update(f.read())
     h.update(" ".join(NVCC_FLAGS).encode())
     return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:16]}.so")
 

@@ -31,6 +31,7 @@ from electrocardio_panorama_tpu_torch.ops import angular_encode
 from electrocardio_panorama_tpu_torch.ops.kernels import decoder_fused as a1
 from electrocardio_panorama_tpu_torch.synthesis import PanoramaGenerator, theta_grid
 from electrocardio_panorama_tpu_torch.utils import resolve_device
+from electrocardio_panorama_tpu_torch.utils.profiling import device_window
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -85,40 +86,16 @@ def profile_dtype(cfg, dtype: str, batches: int, batch_size: int, device) -> dic
         render_batch(gen, batch, views, clock)
         n += 1
 
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     batches_data = [b for _, b in zip(range(batches), iter(loader))]
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        for b in batches_data:
-            render_batch(gen, b, views)
-        torch.cuda.synchronize()
-        window = time.perf_counter() - t0
-    by_kernel = {}
-    for e in prof.key_averages():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue  # host-side ops report their kernels' time too
-        dev_us = getattr(e, "self_device_time_total", None)
-        if dev_us is None:
-            dev_us = getattr(e, "self_cuda_time_total", 0.0)
-        if dev_us > 0:
-            by_kernel[e.key[:80]] = dev_us / 1e3 / n
-    # busy share from the union of kernel intervals on the device timeline
-    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA)
-    busy_us, end = 0.0, float("-inf")
-    for a, b in spans:
-        busy_us += max(0.0, b - max(a, end))
-        end = max(end, b)
-    top = dict(sorted(by_kernel.items(), key=lambda kv: -kv[1])[:12])
+    win = device_window(lambda: [render_batch(gen, b, views) for b in batches_data], n)
     return {
         "dtype": dtype, "batch": batch_size, "views": len(views), "batches": n,
         "host_ms_per_batch": {k: 1e3 * v / n for k, v in split.items()},
-        "device_ms_per_batch_by_kernel": top,
-        "device_kernel_sum_ms_per_batch": sum(by_kernel.values()),
-        "device_busy_ms_per_batch": busy_us / 1e3 / n,
-        "device_busy_share": busy_us / 1e6 / window,
-        "window_ms_per_batch": 1e3 * window / n,
+        "device_ms_per_batch_by_kernel": win["by_kernel"],
+        "device_kernel_sum_ms_per_batch": win["kernel_sum_ms"],
+        "device_busy_ms_per_batch": win["busy_ms"],
+        "device_busy_share": win["busy_share"],
+        "window_ms_per_batch": win["window_ms"],
     }
 
 

@@ -7,9 +7,15 @@
   * load(): explicit path -> `last_checkpoint` pointer -> best_valid.pkl,
     and an explicit `MODEL.resume` path that does not exist raises.
 
-A checkpoint the JAX package writes loads here unchanged: its optimizer
-state pickles optax classes, which unpickle as opaque tuples so that loading
-never imports jax. A reference PyTorch checkpoint (torch.save .pkl) loads
+The optimizer state is saved by parameter key (training/optim.py::
+state_by_key) and comes back by key whichever package wrote it: a JAX
+checkpoint's optax state pickles optax classes, which unpickle here as
+tuples that keep their class names (so loading never imports jax) and map
+onto the by-key form through `convert.optimizer_from_optax`. The JAX
+package's CheckPointer loads a port checkpoint as it is; its optimizer dict
+maps onto an optax state through `convert.optimizer_to_optax`. The Solver's
+extras (`epoch`, `psnr_gen`, `psnr_reg`, `best_test_psnr_gen`) ride in every
+epoch checkpoint. A reference PyTorch checkpoint (torch.save .pkl) loads
 through `torch_import`.
 """
 
@@ -20,6 +26,8 @@ import pickle
 
 import numpy as np
 import torch
+
+from electrocardio_panorama_tpu_torch.convert import optimizer_from_optax
 
 
 def _to_numpy(tree):
@@ -71,6 +79,9 @@ class CheckPointer:
         return path
 
     # ------------------------------------------------------------------ load
+    def epoch_path(self, epoch: int) -> str:
+        return os.path.join(self.save_dir or ".", f"epoch_{epoch}.pkl")
+
     def resolve(self, resume: str | None = None, best_valid: bool = False) -> str | None:
         if resume:
             return resume
@@ -86,8 +97,9 @@ class CheckPointer:
         return None
 
     def load(self, resume: str | None = None, best_valid: bool = False):
-        """Returns (params, bn_state, opt_state, extras) with CPU tensors, or
-        None when there is nothing to load."""
+        """Returns (params, bn_state, opt_state, extras) with CPU tensors and
+        opt_state by parameter key (or None), or None when there is nothing
+        to load."""
         path = self.resolve(resume, best_valid)
         if resume and (path is None or not os.path.exists(path)):
             raise FileNotFoundError(
@@ -111,4 +123,6 @@ class CheckPointer:
         params = _to_torch(payload.pop("model"))
         bn_state = _to_torch(payload.pop("bn_state", {}))
         opt_state = payload.pop("optimizer", None)
+        if opt_state is not None and not (isinstance(opt_state, dict) and "state" in opt_state):
+            opt_state = optimizer_from_optax(opt_state, params)  # written by the JAX package
         return params, bn_state, opt_state, payload

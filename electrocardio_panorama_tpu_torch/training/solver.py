@@ -1,0 +1,452 @@
+"""Solver: the training/eval runtime (reference codes/solver/solver.py:16-245;
+the JAX package's training/solver.py) on one CUDA device, or on the CPU when
+the caller names it.
+
+  * one train step: forward, loss, backward and the optimizer update, in
+    TPU.compute_dtype over float32 masters (training/precision.py); the loss
+    tuple is (loss, loss1*f0, loss2*f1, loss3*f2);
+  * one eval step: outputs, the loss tuple with the unsupervised term, and
+    PSNR/SSIM with the gen/reg split on the device; the rest views decode
+    through the streamed-basis kernel A1 under TPU.eval_decoder;
+  * the encoder of the train step is the fused pair A2/A3 under
+    TPU.train_encoder ('auto' picks it on CUDA with bfloat16 compute on
+    model_nefnet, as the JAX package picks its Pallas pair on a TPU);
+  * dropout masks come from a per-step torch.Generator seeded from
+    (seed, epoch, step), and the standin shuffle indices from a per-epoch
+    numpy stream, so a resume at an epoch reproduces both streams, and the
+    fused and eager encoders see the same masks.
+
+Checkpoint cadence and best-model selection mirror the reference: every epoch
+saved as epoch_{n}.pkl, best tracked by test psnr_gen into best_valid.pkl,
+auto-resume from the last_checkpoint pointer with restored epoch and best.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import os
+import time
+
+import numpy as np
+import torch
+
+from electrocardio_panorama_tpu_torch.models import build_loss, build_model
+from electrocardio_panorama_tpu_torch.ops import angular_encode, full_f32
+from electrocardio_panorama_tpu_torch.ops.kernels.encoder_fused import draw_masks, make_fused_encode_fn
+from electrocardio_panorama_tpu_torch.training import metrics as M
+from electrocardio_panorama_tpu_torch.training.checkpoint import CheckPointer
+from electrocardio_panorama_tpu_torch.training.optim import (
+    get_optimizer,
+    load_state_by_key,
+    lr_for_epoch,
+    set_lr,
+    state_by_key,
+)
+from electrocardio_panorama_tpu_torch.training.precision import cast_floats, cast_floats_f32
+from electrocardio_panorama_tpu_torch.utils import ScalarWriter, resolve_device
+
+_TRAIN_KEYS = ("data", "input_theta", "target_theta", "rois", "target_view", "noise")
+_EVAL_KEYS = ("data", "input_theta", "target_theta", "rois", "rest_theta", "target_view", "rest_view")
+
+
+def gen_lead_count(cfg) -> int:
+    """Number of truly-unseen ('gen') leads at the end of rest_out
+    (solver.py:197-199)."""
+    gen_num = 6 if cfg.DATA.lead_num == 336 else 4
+    if cfg.DATA.super_mode != "normal":
+        gen_num = int(cfg.DATA.super_mode[-1])
+    return gen_num
+
+
+def whole_sequence_metrics(cfg) -> bool:
+    """True when eval metrics cover the whole rest_out (no gen/reg split, no
+    roi masking): dataset 'mit', super_mode '_mit', or a super_mode with zero
+    unsupervised leads (reference solver.py:200-206)."""
+    return (cfg.DATA.dataset == "mit" or cfg.DATA.super_mode == "_mit"
+            or (cfg.DATA.super_mode != "normal" and cfg.DATA.super_mode[-1] == "0"))
+
+
+def step_seed(seed: int, epoch: int, step: int) -> int:
+    """Seed of the step's dropout generator: a function of (seed, epoch, step)
+    only, so a resume reproduces the stream."""
+    return int(np.random.SeedSequence([seed, epoch, step, 0xD809]).generate_state(1)[0])
+
+
+def check_ported_knobs(cfg) -> None:
+    """Knobs whose paths this port has not reached raise, naming their ROADMAP
+    item; they never run something else silently."""
+    if list(cfg.TPU.mesh_shape):
+        raise NotImplementedError("TPU.mesh_shape (data parallelism over a device mesh) is not "
+                                  "ported yet: ROADMAP.md Queue A item 9")
+    backend = cfg.TPU.checkpoint_backend
+    if backend == "orbax":
+        raise NotImplementedError("TPU.checkpoint_backend='orbax' is not ported yet: ROADMAP.md "
+                                  "open items (orbax); use 'pickle'")
+    if backend != "pickle":
+        raise ValueError(f"unknown TPU.checkpoint_backend {backend!r} (use 'pickle' or 'orbax')")
+    dec = cfg.TPU.train_decoder
+    if dec == "fused":
+        raise NotImplementedError("TPU.train_decoder='fused' (kernels A4f/A4b) is not ported yet: "
+                                  "ROADMAP.md Queue B; use 'xla'")
+    if dec != "xla":
+        raise ValueError(f"unknown TPU.train_decoder {dec!r} (use 'xla' or 'fused')")
+
+
+class Solver:
+    def __init__(self, cfg, use_writer: bool = True, device=None):
+        check_ported_knobs(cfg)
+        self.cfg = cfg
+        self.desc = cfg.desc
+        self.device = resolve_device(device)
+        self.output_dir = os.path.join(cfg.output_dir, cfg.desc)
+        os.makedirs(self.output_dir, exist_ok=True)
+        self.model = build_model(cfg)
+        self.loss = build_loss(cfg)
+        self.compute_dtype = getattr(torch, cfg.TPU.compute_dtype)
+        if self.compute_dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"TPU.compute_dtype {cfg.TPU.compute_dtype!r}: use float32 or bfloat16")
+        self.mixed = self.compute_dtype != torch.float32
+        self.writer = ScalarWriter(os.path.join(cfg.output_dir, "tf_logs")
+                                   if use_writer and self.desc != "debug" else None)
+        self.train_encoder = self._train_encoder_mode()
+        self._train_enc_fn = (make_fused_encode_fn(cfg.DATA.lead_num, cfg.MODEL.theta_L,
+                                                   ckpt=cfg.TPU.encoder_ckpt)
+                              if self.train_encoder == "fused" else None)
+        self.eval_decoder = self._eval_decoder_mode()
+        self._eval_enc_fn = self._eval_encode_fn()
+        # per epoch: train losses [steps, 4], host-clock times, scalars
+        self.history: dict[int, dict] = {}
+
+    # ----------------------------------------------------------------- knobs
+    def _nefnet_only(self, knob: str) -> None:
+        if self.cfg.MODEL.model != "model_nefnet":
+            raise ValueError(f"{knob}='fused' supports model_nefnet only (the fused encoder "
+                             "mirrors its per-lead tower/z-block)")
+
+    def _train_encoder_mode(self) -> str:
+        """TPU.train_encoder: 'auto' picks the fused pair A2/A3 on CUDA with
+        bfloat16 compute on model_nefnet, and the eager encoder elsewhere;
+        'fused' forces the pair (float32 or bfloat16; on a CPU tensor it runs
+        the pair's plain version); 'xla' names the eager encoder."""
+        mode = self.cfg.TPU.train_encoder
+        if mode == "auto":
+            mode = ("fused" if self.mixed and self.device.type == "cuda"
+                    and self.cfg.MODEL.model == "model_nefnet" else "xla")
+        if mode not in ("xla", "fused"):
+            raise ValueError(f"unknown TPU.train_encoder {mode!r} (use 'auto', 'xla', or 'fused')")
+        if mode == "fused":
+            self._nefnet_only("TPU.train_encoder")
+        return mode
+
+    def _eval_decoder_mode(self) -> str:
+        """TPU.eval_decoder: 'auto' is the A1 kernel on CUDA and the eager
+        decoder on the CPU; 'fused' / 'fused_bf16' name A1 with float32 /
+        bfloat16 storage."""
+        dec = self.cfg.TPU.eval_decoder
+        if dec == "auto":
+            dec = "fused" if self.device.type == "cuda" else "xla"
+        if dec not in ("xla", "fused", "fused_bf16"):
+            raise ValueError(f"unknown TPU.eval_decoder {dec!r} (use 'auto', 'xla', 'fused', or 'fused_bf16')")
+        return dec
+
+    def _eval_encode_fn(self):
+        """TPU.eval_encoder: 'fused' runs A2 in eval form, 'xla' the eager
+        encoder."""
+        enc = self.cfg.TPU.eval_encoder
+        if enc == "fused":
+            self._nefnet_only("TPU.eval_encoder")
+            return make_fused_encode_fn(self.cfg.DATA.lead_num, self.cfg.MODEL.theta_L)
+        if enc != "xla":
+            raise ValueError(f"unknown TPU.eval_encoder {enc!r} (use 'xla' or 'fused')")
+        return None
+
+    def _precision(self):
+        """float32 steps run forward and backward at full float32: cuDNN's
+        backward convolutions run inside loss.backward(), so TF32 stays off
+        around it too."""
+        return full_f32() if not self.mixed else contextlib.nullcontext()
+
+    def _tensors(self, batch: dict, keys) -> list[torch.Tensor]:
+        return [torch.as_tensor(np.asarray(batch[k])).to(self.device, non_blocking=True) for k in keys]
+
+    # ---------------------------------------------------------------- state
+    def init_state(self):
+        """(params as leaf tensors that require grad, bn_state, optimizer),
+        from a CPU generator seeded with cfg.seed."""
+        params, bn_state = self.model.init(torch.Generator().manual_seed(self.cfg.seed), device=self.device)
+        params = {k: v.requires_grad_(True) for k, v in params.items()}
+        return params, bn_state, get_optimizer(self.cfg, params)
+
+    # ----------------------------------------------------------------- steps
+    def train_step(self, params: dict, bn_state: dict, opt, *, epoch: int, step: int, i1: int, i2: int,
+                   batch: dict):
+        """One step; updates `params` in place through `opt` and returns
+        (new bn_state, loss vector [4] on the device)."""
+        cfg = self.cfg
+        data, it, tt, rois, tv, noise = self._tensors(batch, _TRAIN_KEYS)
+        gen = torch.Generator(device=self.device).manual_seed(step_seed(cfg.seed, epoch, step))
+        masks = draw_masks(gen, data.shape[0], cfg.DATA.lead_num, dtype=self.compute_dtype)
+        opt.zero_grad(set_to_none=True)
+        with self._precision():
+            p = cast_floats(params, self.compute_dtype) if self.mixed else params
+            if self.mixed:
+                data, it, tt = (t.to(self.compute_dtype) for t in (data, it, tt))
+            (out, sp, sl), new_bn = self.model.apply(
+                p, bn_state, data, it, tt, rois, phase="train", masks=masks, shuffle_idx=(i1, i2),
+                encode_fn=self._train_enc_fn)
+            if self.mixed:
+                out, sp, sl = (t.float() for t in (out, sp, sl))
+                new_bn = cast_floats_f32(new_bn)
+            if cfg.DATA.noise:
+                out = out + noise[:, None, :]
+            loss, lo1, lo2, lo3 = self.loss(out, sp, sl, tv[:, None, :], cfg)
+            loss.backward()
+        opt.step()
+        new_bn = {k: v.detach() for k, v in new_bn.items()}
+        return new_bn, torch.stack([loss, lo1, lo2, lo3]).detach().float()
+
+    @torch.no_grad()
+    def eval_step(self, params: dict, bn_state: dict, batch: dict):
+        """(out, rest_out, losses [5], metrics [4] = psnr_gen, psnr_reg,
+        ssim_gen, ssim_reg, per-gen-lead [gen_num, 2] (psnr, ssim))."""
+        cfg = self.cfg
+        data, it, tt, rois, rt, tv, rv = self._tensors(batch, _EVAL_KEYS)
+        rest_fn = None
+        if self.eval_decoder != "xla":
+            from electrocardio_panorama_tpu_torch.ops.kernels.decoder_fused import (
+                fold_decoder_bn,
+                fused_decode_views,
+            )
+
+            storage = torch.bfloat16 if self.eval_decoder == "fused_bf16" else torch.float32
+            folded = fold_decoder_bn(params, bn_state, dtype=storage)
+
+            def rest_fn(latent_all, r_theta):
+                # the basis decode takes the angular encodings, not the gates
+                enc = angular_encode(r_theta, cfg.MODEL.theta_L)
+                return fused_decode_views(folded, latent_all.to(storage), enc=enc)
+
+        with full_f32():
+            (out, sp, sl, rest_out), _ = self.model.apply(
+                params, bn_state, data, it, tt, rois, rest_theta=rt, phase="test", shuffle_idx=(0, 0),
+                rest_decode_fn=rest_fn, encode_fn=self._eval_enc_fn)
+            rest_out = rest_out.float()
+            # the unsupervised term over the last 4 rest views: the reference
+            # hardcodes 4 whatever gen_num is (solver.py:192-193)
+            losses = torch.stack(self.loss(out, sp, sl, tv[:, None, :], cfg, rest_out[:, -4:], rv[:, -4:]))
+            gen_num = gen_lead_count(cfg)
+            if whole_sequence_metrics(cfg) or gen_num == 0:
+                full = torch.full_like(rois, 10**9)  # psnr_values clamps the end to T
+                pv, sv = M.psnr_values(rest_out, rv, full), M.ssim_values(rest_out, rv, full)
+                metrics = torch.stack([pv.mean(), pv.mean(), sv.mean(), sv.mean()])
+                single = pv.new_zeros((0, 2))
+            else:
+                pv, sv = M.psnr_values(rest_out, rv, rois), M.ssim_values(rest_out, rv, rois)  # [B, R]
+                metrics = torch.stack([pv[:, -gen_num:].mean(), pv[:, :-gen_num].mean(),
+                                       sv[:, -gen_num:].mean(), sv[:, :-gen_num].mean()])
+                single = torch.stack([pv[:, -gen_num:].mean(0), sv[:, -gen_num:].mean(0)], dim=1)
+        return out, rest_out, losses, metrics, single
+
+    # ------------------------------------------------------------ epoch loop
+    def run_one_epoch(self, dl, phase: str, *, epoch: int, params, bn_state, opt=None):
+        cfg = self.cfg
+        losses, metrics_all, singlelead = [], [], []
+        host_rng = np.random.default_rng(
+            np.random.SeedSequence([cfg.seed, epoch, 0x5EED if phase == "train" else 0xE7A1]))
+        max_steps = cfg.TPU.steps_per_epoch or None
+        n_views = 0
+        for step_i, batch in enumerate(dl):
+            if max_steps and step_i >= max_steps:
+                break
+            if phase == "train":
+                i1 = int(host_rng.integers(0, cfg.DATA.lead_num))
+                i2 = int(host_rng.integers(0, cfg.DATA.lead_num))
+                bn_state, lvec = self.train_step(params, bn_state, opt, epoch=epoch, step=step_i,
+                                                 i1=i1, i2=i2, batch=batch)
+                # losses stay on the device until the epoch ends: no
+                # device-to-host sync per step
+                losses.append(lvec)
+            else:
+                _, rest_out, lvec, met4, single = self.eval_step(params, bn_state, batch)
+                n_views += rest_out.shape[0] * rest_out.shape[1]
+                losses.append(lvec)
+                metrics_all.append(met4)
+                if single.shape[0]:
+                    singlelead.append(single)
+
+        if not losses:
+            # an empty epoch would report 0.0 for every loss and metric, as
+            # when DATA.batch_size exceeds the split and drop_last takes all
+            print(f"WARNING: epoch {epoch} ({phase}) produced 0 batches — is DATA.batch_size "
+                  f"larger than the {phase} split (drop_last)?", flush=True)
+
+        # one device-to-host sync for the whole epoch
+        losses_np = torch.stack(losses).cpu().numpy() if losses else np.empty((0,))
+        if phase == "train" and cfg.TPU.check_nans and losses:
+            finite = np.isfinite(losses_np).all(axis=1)
+            if not finite.all():
+                bad = int(np.argmax(~finite))
+                raise FloatingPointError(
+                    f"non-finite loss at epoch {epoch} step {bad}: {losses_np[bad].tolist()} (resume "
+                    f"from the last epoch checkpoint in {self.output_dir})")
+        return {
+            "losses": losses_np,
+            "metrics": torch.stack(metrics_all).cpu().numpy() if metrics_all else None,
+            "singlelead": torch.stack(singlelead).cpu().numpy() if singlelead else None,
+            "bn_state": bn_state, "steps": len(losses), "views": n_views,
+        }
+
+    # ----------------------------------------------------------------- train
+    def _acquire_run_lock(self):
+        """Exclusive advisory lock on the run directory: two trainers on one
+        output_dir would interleave epoch checkpoints and scalars.jsonl rows
+        without an error. The OS drops the lock on any exit."""
+        import fcntl
+
+        os.makedirs(self.cfg.output_dir, exist_ok=True)
+        path = os.path.join(self.cfg.output_dir, ".train.lock")
+        f = open(path, "w")
+        try:
+            fcntl.flock(f, fcntl.LOCK_EX | fcntl.LOCK_NB)
+        except OSError:
+            f.close()
+            raise RuntimeError(
+                f"another trainer holds {path}: refusing to run two trainers on one output_dir "
+                "(they interleave epoch checkpoints and scalars.jsonl rows); pick a different "
+                "output_dir or stop the other run") from None
+        f.write(f"pid {os.getpid()}\n")
+        f.flush()
+        return f
+
+    def train(self, dl_train, dl_test):
+        lock = self._acquire_run_lock()
+        try:
+            return self._train_locked(dl_train, dl_test)
+        finally:
+            lock.close()  # closing the fd releases the flock
+
+    def restore(self):
+        """(params, bn_state, optimizer, start epoch, best psnr_gen): a fresh
+        init, or the checkpoint MODEL.resume names (which must exist), or the
+        run directory's last one, whichever package wrote it."""
+        params, bn_state, opt = self.init_state()
+        loaded = CheckPointer(self.output_dir).load(self.cfg.MODEL.resume or None)
+        if loaded is None:
+            return params, bn_state, opt, 0, 0.0
+        lp, ls, opt_loaded, extras = loaded
+        with torch.no_grad():
+            for k, v in params.items():
+                v.copy_(lp[k])
+        bn_state = {k: ls[k].to(self.device, v.dtype) for k, v in bn_state.items()}
+        if opt_loaded is not None:
+            load_state_by_key(opt, params, opt_loaded)
+        start_epoch = int(extras["epoch"]) + 1 if "epoch" in extras else 0
+        best_psnr_gen = float(extras.get("best_test_psnr_gen", 0.0))
+        print(f"resumed from epoch {start_epoch}, best_test_psnr_gen {best_psnr_gen:.6f}")
+        return params, bn_state, opt, start_epoch, best_psnr_gen
+
+    def _train_locked(self, dl_train, dl_test):
+        cfg = self.cfg
+        params, bn_state, opt, start_epoch, best_psnr_gen = self.restore()
+        ckpt = CheckPointer(self.output_dir)
+        # scalars.jsonl stays one clean run: drop rows from the first epoch
+        # this process writes on
+        self.writer.prune_from(start_epoch)
+
+        profile_dir = cfg.TPU.profile_dir
+        for epoch in range(start_epoch, cfg.SOLVER.epochs):
+            print(f"---------------------------------{self.desc}---{epoch}-------------------------------------")
+            set_lr(opt, lr_for_epoch(cfg, epoch))
+            if hasattr(dl_train, "set_epoch"):
+                dl_train.set_epoch(epoch)
+            prof = self._start_profile(profile_dir) if profile_dir and epoch == start_epoch else None
+            t0 = time.perf_counter()
+            tr = self.run_one_epoch(dl_train, "train", epoch=epoch, params=params, bn_state=bn_state, opt=opt)
+            t1 = time.perf_counter()
+            bn_state = tr["bn_state"]
+            if prof is not None:
+                self._stop_profile(prof, profile_dir)
+            if hasattr(dl_test, "set_epoch"):
+                # the eval beats of epoch e are drawn alike with or without a
+                # resume before it (a fresh run's test loader is at e anyway)
+                dl_test.set_epoch(epoch)
+            te = self.run_one_epoch(dl_test, "test", epoch=epoch, params=params, bn_state=bn_state)
+            t2 = time.perf_counter()
+
+            trm = tr["losses"].mean(axis=0) if len(tr["losses"]) else np.zeros(4)
+            tem = te["losses"].mean(axis=0) if len(te["losses"]) else np.zeros(5)
+            met = te["metrics"].mean(axis=0) if te["metrics"] is not None else np.zeros(4)
+            psnr_gen, psnr_reg, ssim_gen, ssim_reg = (float(v) for v in met)
+            scalars = {
+                "train_loss_all": trm[0], "test_loss_all": tem[0],
+                "train_loss_1": trm[1], "test_loss_1": tem[1],
+                "train_loss_2": trm[2], "test_loss_2": tem[2],
+                "train_3": trm[3], "test_3": tem[3], "test_unsuperv": tem[4],
+                "psnr_gen": psnr_gen, "psnr_reg": psnr_reg, "ssim_gen": ssim_gen, "ssim_reg": ssim_reg,
+            }
+            if te["singlelead"] is not None:
+                sl = te["singlelead"].mean(axis=0)  # [gen_num, 2]
+                for i in range(sl.shape[0]):
+                    scalars[f"psnr_reg_lead_{i}"] = sl[i, 0]
+                    scalars[f"ssim_reg_lead_{i}"] = sl[i, 1]
+            self.history[epoch] = {"train_losses": tr["losses"], "train_s": t1 - t0, "train_steps": tr["steps"],
+                                   "eval_s": t2 - t1, "eval_views": te["views"], "scalars": scalars}
+            if self.desc != "debug":
+                self.writer.write(scalars, epoch)
+            print(f"Epoch {epoch}: train_loss: {trm[0]:.6f}, test_loss: {tem[0]:.6f} ({t2 - t0:.1f}s)")
+            print(f"psnr_gen: {psnr_gen}, psnr_reg: {psnr_reg}, ssim_gen:{ssim_gen}, ssim_reg:{ssim_reg}")
+
+            # best_test_psnr_gen rides in every epoch checkpoint, so a resume
+            # from a non-best epoch keeps the best tracking (solver.py:105-116)
+            is_best = psnr_gen > best_psnr_gen
+            if is_best:
+                best_psnr_gen = psnr_gen
+            extras = {"psnr_gen": psnr_gen, "psnr_reg": psnr_reg, "epoch": epoch,
+                      "best_test_psnr_gen": best_psnr_gen}
+            opt_saved = state_by_key(opt, params)
+            ckpt.save(f"epoch_{epoch}", params=params, bn_state=bn_state, opt_state=opt_saved, **extras)
+            if is_best:
+                ckpt.save("best_valid", params=params, bn_state=bn_state, opt_state=opt_saved, **extras)
+        return {k: v.detach() for k, v in params.items()}, bn_state
+
+    def _start_profile(self, profile_dir: str):
+        """A torch.profiler trace of the first epoch's train steps; best
+        effort, as in the JAX package."""
+        try:
+            acts = [torch.profiler.ProfilerActivity.CPU]
+            if self.device.type == "cuda":
+                acts.append(torch.profiler.ProfilerActivity.CUDA)
+            prof = torch.profiler.profile(activities=acts)
+            prof.__enter__()
+            return prof
+        except Exception as e:  # noqa: BLE001 — profiling is best effort
+            print(f"profiler unavailable: {e}")
+            return None
+
+    def _stop_profile(self, prof, profile_dir: str) -> None:
+        try:
+            prof.__exit__(None, None, None)
+            os.makedirs(profile_dir, exist_ok=True)
+            path = os.path.join(profile_dir, "train_trace.json")
+            prof.export_chrome_trace(path)
+            print(f"profiler trace written to {path}")
+        except Exception as e:  # noqa: BLE001 — profiling is best effort
+            print(f"profiler trace not written: {e}")
+
+    # ------------------------------------------------------------------- val
+    def val(self, dl_test, epoch: int = -1):
+        ckpt = CheckPointer(self.output_dir)
+        loaded = ckpt.load(best_valid=True) if epoch == -1 else ckpt.load(ckpt.epoch_path(epoch))
+        if loaded is None:
+            raise FileNotFoundError(f"no checkpoint found under {self.output_dir}")
+        params, bn_state, _, extras = loaded
+        print("the latest best_test_psnr_gen is {:06f} of epoch {}".format(
+            float(extras.get("best_test_psnr_gen", 0.0)), extras.get("epoch", 0)))
+        params = {k: v.to(self.device) for k, v in params.items()}
+        bn_state = {k: v.to(self.device) for k, v in bn_state.items()}
+        te = self.run_one_epoch(dl_test, "test", epoch=0, params=params, bn_state=bn_state)
+        if te["metrics"] is None:
+            raise RuntimeError("the test split produced no batch (DATA.batch_size, drop_last)")
+        met = te["metrics"].mean(axis=0)
+        print("psnr_gen:{}, psnr_reg:{}, ssim_gen:{}, ssim_reg:{}".format(*met))
+        return {"psnr_gen": met[0], "psnr_reg": met[1], "ssim_gen": met[2], "ssim_reg": met[3]}

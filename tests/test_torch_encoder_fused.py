@@ -1,0 +1,252 @@
+"""Fused encoder (kernels A2/A3): the port's plain version against the JAX
+package's Pallas pair `encode_fused_train` / `encode_fused_eval` in
+interpret mode, on the CPU, with the same dropout masks.
+
+Tolerances:
+  * f32 forward: rtol 1e-5, atol 3e-5, the bar of tests/test_pallas_encoder.py;
+  * f32 gradients: the bulk (99.5% of elements within 2e-4 of the largest)
+    plus energy (L2 relative <= 5e-4) criterion of the same file. A plain
+    allclose is wrong here: where a pre-activation sits within rounding of 0
+    the two implementations may take the relu mask either way;
+  * bf16 forward: atol 0.02 and corr > 0.9999 against the JAX bf16 kernel.
+    bf16 gradients: per tensor, corr > 0.995 with the JAX bf16 kernel's, and
+    an L2 distance from it of at most twice (or 1e-2) the JAX bf16 kernel's
+    own L2 distance from its f32 gradient. Both round at the same points and
+    differ by summation order, which bf16 turns into one-ulp steps (2^-8
+    relative) that the later stages carry; the z2 branch, fed by two time
+    steps per sample through roi_align, shows it most (about 5e-2 either
+    way at this size);
+  * `encoder_ckpt` off/tower/full: bitwise-equal gradients on the card.
+"""
+
+import numpy as np
+import pytest
+import jax
+import jax.numpy as jnp
+import torch
+
+from electrocardio_panorama_tpu.models import NefNetDef as JaxNefNetDef
+from electrocardio_panorama_tpu.ops import angular_encode as jax_angular_encode
+from electrocardio_panorama_tpu.ops import linear as jax_linear
+from electrocardio_panorama_tpu.ops.pallas import encoder_fused as EF
+from electrocardio_panorama_tpu.ops.roi import roi_align_ramp as jax_roi_align_ramp
+from electrocardio_panorama_tpu_torch.convert import params_from_jax
+from electrocardio_panorama_tpu_torch.models import encode_latents
+from electrocardio_panorama_tpu_torch.ops.kernels import encoder_fused as TE
+
+L, B, NB = 3, 8, 8
+ENC_PREFIXES = ("W_encoder", "w_conv", "z1_conv", "z2_conv1", "z2_conv2", "mlp1")
+
+
+def masks_model_layout(m6, mc20, mc22):
+    """Kernel-layout masks -> model layout (tests/test_pallas_encoder.py)."""
+    m6, mc20, mc22 = (np.asarray(m, np.float32) for m in (m6, mc20, mc22))
+    nb = m6.shape[-1] // 128
+    return (m6.reshape(6, L, 128, nb, 128).transpose(0, 3, 1, 2, 4).reshape(6, nb, 128 * L, 128),
+            mc20.reshape(7 * L, 128, nb, 16).transpose(2, 0, 1, 3).reshape(nb, 128 * L * 7, 16),
+            mc22.reshape(7 * L, 128, nb, 32).transpose(2, 0, 1, 3).reshape(nb, 128 * L * 7, 32))
+
+
+def make_inputs(seed=0):
+    params, state = JaxNefNetDef(L).init(jax.random.PRNGKey(seed))
+    rng = np.random.default_rng(seed + 7)
+    x = rng.normal(0, 0.6, (B, L, 512)).astype(np.float32)
+    thetas = rng.uniform(-1, 1, (B, L, 2)).astype(np.float32)
+    cuts = np.sort(rng.integers(16, 496, (B, 6)), axis=1)
+    rois = np.zeros((B, 7, 2), np.float32)
+    rois[:, :6, 1] = cuts
+    rois[:, 1:, 0] = cuts
+    rois[:, 6, 1] = 512
+    masks = EF.draw_masks(jax.random.PRNGKey(seed + 3), B, L, jnp.float32)
+    tp, _ = params_from_jax({k: np.asarray(v) for k, v in params.items()},
+                            {k: np.asarray(v) for k, v in state.items()})
+    return params, tp, x, thetas, rois, masks
+
+
+@pytest.fixture(scope="module")
+def inputs():
+    return make_inputs()
+
+
+def jax_encode(params, x, thetas, rois, masks, dtype):
+    """The JAX pair in interpret mode: (z1 [B,128L,128], z2 grid [B,128L,7,32])."""
+    gate1 = jax_linear(jax_angular_encode(jnp.asarray(thetas), 1), params["mlp1.weight"], params["mlp1.bias"])
+    xph, gexp, ramp = EF.prep_encoder_inputs(jnp.asarray(x, dtype), gate1.astype(dtype),
+                                             jax_roi_align_ramp(jnp.asarray(rois)))
+    w = EF.pack_encoder_weights(params, L, dtype)
+    if masks is None:
+        z1k, z2k = EF.encode_fused_eval(w, xph, gexp, ramp, L=L, nb=NB, interpret=True)
+    else:
+        z1k, z2k = EF.encode_fused_train((L, NB, True), w, xph, gexp, ramp,
+                                         *(m.astype(dtype) for m in masks))
+    return EF.unpack_outputs(z1k, z2k, L)
+
+
+def port_encode(tp, x, thetas, rois, masks, dtype):
+    fn = TE.make_fused_encode_fn(L)
+    p = {k: (v.to(dtype) if k in TE.WEIGHT_KEYS.values() else v) for k, v in tp.items()}
+    m = None if masks is None else tuple(torch.tensor(a).to(dtype) for a in masks_model_layout(*masks))
+    return fn(p, torch.tensor(x).to(dtype), torch.tensor(thetas), torch.tensor(rois), masks=m,
+              train=masks is not None)
+
+
+def l2_rel(a, b):
+    return np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-12)
+
+
+def grad_close(a, b, key, bulk=2e-4, l2_bar=5e-4):
+    denom = max(np.abs(b).max(), 1e-3)
+    d = np.abs(a - b) / denom
+    assert (d > bulk).mean() <= 5e-3, f"{key}: {(d > bulk).mean():.2e} of elements over {bulk}"
+    assert l2_rel(a, b) <= l2_bar, f"{key}: grad L2 rel err {l2_rel(a, b):.2e}"
+
+
+@pytest.mark.parametrize("train", [False, True], ids=["eval", "train"])
+def test_plain_forward_f32_matches_jax_interpret(inputs, train):
+    params, tp, x, thetas, rois, masks = inputs
+    m = masks if train else None
+    z1, z2g = jax_encode(params, x, thetas, rois, m, jnp.float32)
+    lat = port_encode(tp, x, thetas, rois, m, torch.float32)
+    np.testing.assert_allclose(lat.z1.numpy(), np.asarray(z1), rtol=1e-5, atol=3e-5)
+    B_ = x.shape[0]
+    from electrocardio_panorama_tpu.ops import roi_reverse_1d
+    z2 = np.asarray(roi_reverse_1d(z2g, jnp.asarray(rois)))
+    np.testing.assert_allclose(lat.z2.numpy(), z2, rtol=1e-5, atol=3e-5)
+    assert lat.latent_all.shape == (B_, 256, 128)
+    if not train:  # and the eager encoder of the port
+        ref = encode_latents(tp, torch.tensor(x), torch.tensor(thetas), torch.tensor(rois), lead_num=L)
+        np.testing.assert_allclose(lat.latent_all.numpy(), ref.latent_all.numpy(), rtol=1e-5, atol=3e-5)
+
+
+def _loss_jax(params, x, thetas, rois, masks, dtype, t1):
+    def f(p):
+        z1, z2g = jax_encode(p, x, thetas, rois, masks, dtype)
+        return (jnp.sum(jnp.abs(z1.astype(jnp.float32) * t1[0]))
+                + jnp.sum(z2g.astype(jnp.float32) * t1[1]))
+    return jax.grad(f)(params)
+
+
+def _loss_port(tp, x, thetas, rois, masks, dtype, t1):
+    """The same loss through the port's pair (mlp1 gate and ramp as
+    make_fused_encode_fn builds them); grads by parameter key."""
+    from electrocardio_panorama_tpu_torch.ops import angular_encode, linear, roi_align_ramp
+
+    p = {k: v.clone().requires_grad_(k.split(".")[0] in ENC_PREFIXES) for k, v in tp.items()}
+    gate = linear(angular_encode(torch.tensor(thetas)), p["mlp1.weight"], p["mlp1.bias"]).to(dtype)
+    ramp = roi_align_ramp(torch.tensor(rois)).to(dtype)
+    m = tuple(torch.tensor(a).to(dtype) for a in masks_model_layout(*masks))
+    z1, z2g = TE.encode_fused({k: p[k].to(dtype) for k in TE.WEIGHT_KEYS.values()},
+                              torch.tensor(x).to(dtype), gate, ramp, m, lead_num=L)
+    loss = (torch.sum(torch.abs(z1.float() * torch.tensor(t1[0])))
+            + torch.sum(z2g.float().reshape(x.shape[0], 128 * L, 7, 32) * torch.tensor(t1[1])))
+    loss.backward()
+    return {k: v.grad for k, v in p.items() if v.grad is not None}
+
+
+@pytest.fixture(scope="module")
+def cotangents():
+    rng = np.random.default_rng(11)
+    return (rng.normal(0, 1, (B, 128 * L, 128)).astype(np.float32),
+            rng.normal(0, 1, (B, 128 * L, 7, 32)).astype(np.float32))
+
+
+@pytest.fixture(scope="module")
+def jax_grads_f32(inputs, cotangents):
+    params, _, x, thetas, rois, masks = inputs
+    return _loss_jax(params, x, thetas, rois, masks, jnp.float32, cotangents)
+
+
+def test_plain_grads_f32_match_jax_interpret(inputs, cotangents, jax_grads_f32):
+    params, tp, x, thetas, rois, masks = inputs
+    gj = jax_grads_f32
+    gp = _loss_port(tp, x, thetas, rois, masks, torch.float32, cotangents)
+    keys = [k for k in params if k.split(".")[0] in ENC_PREFIXES]
+    assert keys
+    for k in keys:
+        b = np.asarray(gj[k])
+        if k.startswith(("w_conv.0.residual", "z2_conv2.0.residual")):
+            assert k not in gp and np.all(b == 0), k  # unused residual convs
+            continue
+        grad_close(gp[k].numpy(), b, k)
+
+
+def test_plain_bf16_matches_jax_interpret(inputs, cotangents, jax_grads_f32):
+    params, tp, x, thetas, rois, masks = inputs
+    z1, z2g = jax_encode(params, x, thetas, rois, masks, jnp.bfloat16)
+    lat = port_encode(tp, x, thetas, rois, masks, torch.bfloat16)
+    ours, ref = lat.z1.float().numpy(), np.asarray(z1, np.float32)
+    np.testing.assert_allclose(ours, ref, atol=0.02)
+    assert np.corrcoef(ours.ravel(), ref.ravel())[0, 1] > 0.9999
+    gj = _loss_jax(params, x, thetas, rois, masks, jnp.bfloat16, cotangents)
+    gp = _loss_port(tp, x, thetas, rois, masks, torch.bfloat16, cotangents)
+    for k in gp:
+        if k.startswith(("w_conv.0.residual", "z2_conv2.0.residual")):
+            continue
+        a, b = gp[k].float().numpy(), np.asarray(gj[k], np.float32)
+        own = l2_rel(b, np.asarray(jax_grads_f32[k]))
+        assert np.corrcoef(a.ravel(), b.ravel())[0, 1] > 0.995, k
+        assert l2_rel(a, b) <= max(2 * own, 1e-2), f"{k}: {l2_rel(a, b):.2e} vs JAX's own {own:.2e}"
+
+
+def test_encode_fused_cpu_dispatch_and_checks(inputs):
+    _, tp, x, thetas, rois, masks = inputs
+    w = {k: tp[k] for k in TE.WEIGHT_KEYS.values()}
+    xt = torch.tensor(x)
+    gate = torch.ones(B, L, 128)
+    ramp = torch.ones(B, 7, 16)
+    launches = sum(TE.LAUNCHES.values())
+    z1, z2g = TE.encode_fused(w, xt, gate, ramp, lead_num=L)
+    assert z1.shape == (B, 128 * L, 128) and z2g.shape == (B, 896 * L, 32)
+    assert sum(TE.LAUNCHES.values()) == launches  # the CPU never counts a kernel launch
+    with pytest.raises(ValueError, match="gate must be"):
+        TE.encode_fused(w, xt, gate[:, :2], ramp, lead_num=L)
+    with pytest.raises(ValueError, match="storage dtype"):
+        TE.encode_fused(w, xt.half(), gate, ramp, lead_num=L)
+    with pytest.raises(ValueError, match="encoder_ckpt"):
+        TE.ckpt_mode("some")
+    assert [TE.ckpt_mode(v) for v in (False, "off", True, "tower", "full")] == \
+        ["off", "off", "tower", "tower", "full"]
+    # the masks drawn by draw_masks are pre-scaled 0 or 1/0.8
+    m6, mc20, mc22 = TE.draw_masks(torch.Generator().manual_seed(0), 2, L)
+    assert m6.shape == (6, 2, 128 * L, 128) and mc20.shape == (2, 896 * L, 16) and mc22.shape == (2, 896 * L, 32)
+    vals = torch.unique(torch.cat([m6.ravel(), mc20.ravel(), mc22.ravel()]))
+    torch.testing.assert_close(vals, torch.tensor([0.0, 1.25]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_kernels_match_plain(dtype):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    dev = torch.device("cuda")
+    sd = getattr(torch, dtype)
+    _, tp, x, thetas, rois, masks = make_inputs(1)
+    w = {k: tp[k].to(dev, sd) for k in TE.WEIGHT_KEYS.values()}
+    rng = np.random.default_rng(5)
+    xt = torch.tensor(x, device=dev, dtype=sd)
+    gate = torch.tensor(rng.normal(0, 1, (B, L, 128)), dtype=sd, device=dev)
+    ramp = torch.tensor(rng.uniform(0, 1, (B, 7, 16)), dtype=sd, device=dev)
+    m = tuple(torch.tensor(a, device=dev).to(sd) for a in masks_model_layout(*masks))
+    dz1 = torch.tensor(rng.normal(0, 1, (B, 128 * L, 128)), dtype=sd, device=dev)
+    dz2 = torch.tensor(rng.normal(0, 1, (B, 896 * L, 32)), dtype=sd, device=dev)
+
+    def run(plain, ckpt="tower"):
+        ws = {k: v.clone().requires_grad_(True) for k, v in w.items()}
+        g = gate.clone().requires_grad_(True)
+        z1, z2g = TE.encode_fused(ws, xt, g, ramp, m, lead_num=L, ckpt=ckpt, plain=plain)
+        torch.autograd.backward([z1, z2g], [dz1, dz2])
+        return (z1, z2g), {"gate": g.grad, **{k: v.grad for k, v in ws.items()}}
+
+    (pz1, pz2), pg = run(True)
+    grads = {}
+    for ckpt in ("off", "tower", "full"):
+        (kz1, kz2), grads[ckpt] = run(False, ckpt)
+        torch.cuda.synchronize()
+        bar = 2e-5 if dtype == "float32" else 0.05
+        assert float((kz1.float() - pz1.float()).abs().max()) <= bar
+        assert float((kz2.float() - pz2.float()).abs().max()) <= bar
+    for k in pg:
+        for ckpt in ("tower", "full"):
+            assert torch.equal(grads[ckpt][k], grads["off"][k]), (ckpt, k)
+        if dtype == "float32" and not k.startswith(("w_conv.0.residual", "z2_conv2.0.residual")):
+            grad_close(grads["off"][k].float().cpu().numpy(), pg[k].float().cpu().numpy(), k)

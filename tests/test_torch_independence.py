@@ -6,7 +6,9 @@ Rules checked:
   * no module of the port, and not chip_smoke.py, imports either (AST scan);
   * a checkpoint the JAX package wrote with optimizer state loads in the port
     without importing jax or optax;
-  * the entry points default to the card and raise without one;
+  * the entry points (render, main, val_net) default to the card and raise
+    without one, from Python and from the command line, unless the CPU is
+    named (`device='cpu'`, `--device cpu`);
   * chip_smoke.py fails, printing no result, without a card or without the repo.
 """
 
@@ -23,7 +25,8 @@ import pytest
 import torch
 
 import electrocardio_panorama_tpu_torch as port
-from electrocardio_panorama_tpu_torch import render
+from electrocardio_panorama_tpu_torch import main as train_main
+from electrocardio_panorama_tpu_torch import render, val_net
 from electrocardio_panorama_tpu_torch.config import load_cfg
 from electrocardio_panorama_tpu_torch.models import NefNetDef, init_nefnet
 from electrocardio_panorama_tpu_torch.synthesis import PanoramaGenerator
@@ -110,6 +113,27 @@ def test_entry_points_need_the_card_unless_cpu_is_named(monkeypatch, tmp_path):
                    ["output_dir", str(tmp_path)])
     with pytest.raises(RuntimeError, match="--device cpu"):
         render.main(cfg)
+    for entry in (train_main.main, val_net.main):
+        with pytest.raises(RuntimeError, match="--device cpu"):
+            entry(cfg)
+
+
+@pytest.mark.skipif(torch.cuda.is_available(), reason="checks the behaviour without a card")
+def test_train_cli_needs_the_card_unless_cpu_is_named(tmp_path):
+    base = [sys.executable, "-m", "electrocardio_panorama_tpu_torch.main", "--config-file",
+            os.path.join(REPO, "configs", "nef_net_synthetic.yml")]
+    opts = ["output_dir", str(tmp_path / "out"), "DATA.synthetic_root", str(tmp_path / "synth"),
+            "DATA.synthetic_n_train", "4", "DATA.synthetic_n_test", "4", "SOLVER.epochs", "0"]
+    env = {**os.environ, "PYTHONPATH": REPO}
+    proc = subprocess.run(base + opts, cwd=REPO, capture_output=True, text=True, timeout=300, env=env)
+    assert proc.returncode != 0 and "--device cpu" in proc.stderr
+    proc = subprocess.run(base + ["--device", "cpu"] + opts, cwd=REPO, capture_output=True, text=True,
+                          timeout=300, env=env)
+    assert proc.returncode == 0, proc.stderr
+    val = [sys.executable, "-m", "electrocardio_panorama_tpu_torch.val_net", "--config-file",
+           os.path.join(REPO, "configs", "nef_net_synthetic.yml"), "--epoch", "0"]
+    proc = subprocess.run(val + opts, cwd=REPO, capture_output=True, text=True, timeout=300, env=env)
+    assert proc.returncode != 0 and "--device cpu" in proc.stderr
 
 
 def test_chip_smoke_fails_without_card_or_repo(tmp_path):

@@ -114,3 +114,27 @@ def test_build_model_registry():
     cfg.MODEL.model = "modelv2"
     with pytest.raises(ValueError, match="model name error"):
         build_model(cfg)
+
+
+@pytest.mark.parametrize("phase", ["val", "test", "gen"])
+def test_nefnet_apply_eval_phases_and_gen_ecg_match_jax(rng, phase):
+    """nefnet_apply in phases val/test (the three decodes and the rest views)
+    and gen (the pre-reverse latents), then gen_ecg, against the JAX package."""
+    jp, js, (tp, ts) = jax_weights(3, seed=1)
+    inp = make_inputs(rng, 2, 3, 5)
+    jm, tm = JaxNefNetDef(3), NefNetDef(3)
+    query = inp["views"][:, 0]
+    args_j = [jnp.asarray(inp[k]) for k in ("x", "thetas")] + [jnp.asarray(query), jnp.asarray(inp["rois"])]
+    args_t = [torch.tensor(inp[k]) for k in ("x", "thetas")] + [torch.tensor(query), torch.tensor(inp["rois"])]
+    jout, js2 = jm.apply(jp, js, *args_j, jnp.asarray(inp["views"]), phase=phase, shuffle_idx=(1, 2))
+    tout, ts2 = tm.apply(tp, ts, *args_t, torch.tensor(inp["views"]), phase=phase, shuffle_idx=(1, 2))
+    assert len(tout) == len(jout) == (2 if phase == "gen" else 4) and ts2 is ts
+    for a, b in zip(tout, jout):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=ATOL, rtol=0)
+    if phase == "gen":
+        g_t = tm.gen_ecg(tp, ts, *tout, torch.tensor(inp["views"]), torch.tensor(inp["rois"]))
+        g_j = jm.gen_ecg(jp, js, *jout, jnp.asarray(inp["views"]), jnp.asarray(inp["rois"]))
+        assert g_t.shape == (2, 5, 512)
+        np.testing.assert_allclose(g_t.numpy(), np.asarray(g_j), atol=ATOL, rtol=0)
+    with pytest.raises(KeyError, match="phase"):
+        tm.apply(tp, ts, *args_t, phase="other")
