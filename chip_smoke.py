@@ -8,20 +8,28 @@ result line:
   2. build   — compile every CUDA kernel of the port from csrc/, all at once;
   3. kernels — each kernel against its plain PyTorch version on the card at
                the main paths' widths (Nef-Net, 3 leads, theta_L=1, B=32):
-               A1 at V=336 and V=11; A2/A3 (the fused encoder) for z1, the
-               z2 grid, latent_all and every parameter gradient, bitwise
-               across encoder_ckpt off/tower/full and a repeat launch;
-               float32 and bfloat16, timed with CUDA events;
+               A1 and the gate-input and y1 decode forms (A5/A7, A6) at V=336
+               and V=11; A2/A3 (the fused encoder) for z1, the z2 grid,
+               latent_all and every parameter gradient, bitwise across
+               encoder_ckpt off/tower/full and a repeat launch; A4f/A4b (the
+               fused train decoder) at 3 groups of 32 for the output, the
+               batch moments, dx and all 18 parameter gradients, bitwise
+               across a repeat launch; float32 and bfloat16, timed with CUDA
+               events;
   4. render  — the port's render entry point (`render.main`) on a generated
                synthetic corpus with a seeded random checkpoint, over the
                84-view grid, in float32 and bfloat16, through A1; launch
                counts read around that run; held against the same run with
-               the plain decode;
+               the plain decode; then `fused_decode_views(gates=)` and
+               `(enc=, head='y1')` on the same checkpoint and the first
+               batch's latents, held against the rendered views;
   5. train   — the port's trainer (`main.main`) on a generated synthetic
                corpus at batch 32: a few steps and one eval epoch (A1), in
                float32 with TPU.train_encoder fused and in bfloat16 with
-               auto; A2/A3 launch counts read around each run; held against
-               the same run with the eager encoder (same batches, same
+               auto (A2/A3), in float32 with TPU.train_decoder fused and the
+               eager encoder, and in bfloat16 with both fused (A4f/A4b);
+               launch counts read around each run; each held against the
+               same run without the kernels under test (same batches, same
                masks): per-step losses, and the params after one step;
   6. summary — one JSON line naming every kernel with its numbers.
 The last line is {"ok": true, "device": {...}}.
@@ -45,6 +53,9 @@ H100_BYTES_PER_S = 3.35e12      # HBM3, H100 SXM data sheet
 H100_F32_FLOPS = 67e12          # float32 outside the tensor cores
 H100_BF16_FLOPS = 989e12        # bf16 dense tensor cores
 F32_TOL, BF16_TOL, BF16_CORR = 2e-5, 1e-4, 0.999
+# two bfloat16 decode forms against each other: each carries its own rounding
+# (BF16_CORR against float32 each), so twice the distance from 1
+BF16_PAIR_CORR = 0.998
 B, V_MAIN, V_PAD, VIEW_TILE = 32, 336, 11, 16
 A1_REPLACES = "electrocardio_panorama_tpu/ops/pallas/decoder_fused.py:673"
 A1_SOURCE = "electrocardio_panorama_tpu_torch/ops/kernels/csrc/decoder_basis.cu"
@@ -52,7 +63,18 @@ A2_REPLACES = "electrocardio_panorama_tpu/ops/pallas/encoder_fused.py:438"
 A2_SOURCE = "electrocardio_panorama_tpu_torch/ops/kernels/csrc/encoder_fwd.cu"
 A3_REPLACES = "electrocardio_panorama_tpu/ops/pallas/encoder_fused.py:500"
 A3_SOURCE = "electrocardio_panorama_tpu_torch/ops/kernels/csrc/encoder_bwd.cu"
-KERNELS = ["decoder_basis", "encoder_fwd", "encoder_bwd"]
+JAX_DECODER = "electrocardio_panorama_tpu/ops/pallas/decoder_fused.py"
+FORMS_SOURCE = "electrocardio_panorama_tpu_torch/ops/kernels/csrc/decoder_forms.cu"
+# the float32 gate kernel stands for both JAX gate kernels (polyphase, layout A)
+FORMS_REPLACES = {"decoder_gates_f32": f"{JAX_DECODER}:714 and {JAX_DECODER}:308",
+                  "decoder_gates_bf16": f"{JAX_DECODER}:714",
+                  "decoder_y1_f32": f"{JAX_DECODER}:659", "decoder_y1_bf16": f"{JAX_DECODER}:659"}
+A4F_REPLACES = "electrocardio_panorama_tpu/ops/pallas/decoder_train.py:250"
+A4F_SOURCE = "electrocardio_panorama_tpu_torch/ops/kernels/csrc/decoder_train_fwd.cu"
+A4B_REPLACES = "electrocardio_panorama_tpu/ops/pallas/decoder_train.py:267"
+A4B_SOURCE = "electrocardio_panorama_tpu_torch/ops/kernels/csrc/decoder_train_bwd.cu"
+KERNELS = ["decoder_basis", "decoder_forms", "encoder_fwd", "encoder_bwd", "decoder_train_fwd",
+           "decoder_train_bwd"]
 LEADS = 3
 # A2/A3 against the plain version. float32: forward max abs error 2e-5;
 # gradients by the bulk (99.5% of elements within 2e-4 of the largest) plus
@@ -62,9 +84,23 @@ LEADS = 3
 # forward max abs error 2^-5 of the largest |value| and corr > 0.9999,
 # gradients corr > 0.995 and L2 relative 5e-2 (tests/test_torch_encoder_fused.py).
 ENC_BF16_FWD_REL, ENC_BF16_FWD_CORR, ENC_BF16_GRAD_CORR, ENC_BF16_GRAD_L2 = 2.0 ** -5, 0.9999, 0.995, 5e-2
-# train phase, fused encoder against the eager one on the same batches and
-# masks: per-step loss relative difference; the params after one step, as
-# the L2 distance between the two updates over the L2 size of the update
+# A4f/A4b against the plain version at 3 groups of 32. float32 forward: max
+# abs error 2e-5 on the output, the moments within 1e-5 (relative and
+# absolute). Gradients: a relu mask whose pre-activation sits within rounding
+# of 0 may fall either way, and one flipped element moves a whole term of a
+# per-channel sum (about 6e-4 of a gradient's L2 norm at these shapes), so with
+# the model's BN offsets the bar is L2 relative 5e-3 and corr > 0.9999; with
+# the offsets raised so that no relu clips, summation order alone is left and
+# the bar is L2 relative 2e-4. The conv biases before a BN get a gradient of
+# rounding noise on both sides (the batch mean cancels them): |g| <= 1e-3.
+# bfloat16: output max abs error 2e-3 and corr > 0.9999, moments within 1e-3,
+# gradients at the encoder's bfloat16 bars.
+DEC_F32_GRAD_L2, DEC_F32_GRAD_CORR, DEC_F32_OPEN_L2, DEC_NOISE = 5e-3, 0.9999, 2e-4, 1e-3
+DEC_BF16_FWD, DEC_BF16_FWD_CORR, DEC_BF16_STAT = 2e-3, 0.9999, 1e-3
+# train phase, a run with kernels against the run without them on the same
+# batches and masks: per-step loss relative difference; the params after one
+# step, as the L2 distance between the two updates over the L2 size of the
+# update
 TRAIN_STEPS, TRAIN_N_TEST = 4, 96
 TRAIN_LOSS_REL = {"float32": 1e-4, "bfloat16": 5e-2}
 TRAIN_UPDATE_REL = {"float32": 1e-3, "bfloat16": 1e-1}
@@ -92,20 +128,28 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def a1_bound_ms(U, ep, folded, n_views: int) -> tuple[float, str]:
-    """Least time for the A1 function on these inputs: bytes (each input read
-    once, the output written once) over HBM rate vs operations over the peak
-    of the storage type."""
-    J = ep.shape[-1]
-    flops_per_view = 2 * (J * 128 * 256 + 128 * 128 * 3 * 256 + 64 * 128 * 3 * 512
-                          + 64 * 64 * 3 * 512 + 64 * 3 * 512)
-    flops = flops_per_view * n_views
-    nbytes = (U.numel() * U.element_size() + ep.numel() * ep.element_size()
-              + sum(t.numel() * t.element_size() for k, t in folded.items() if k not in ("w1", "A"))
-              + n_views * 512 * 4)
-    peak = H100_BF16_FLOPS if U.dtype == torch.bfloat16 else H100_F32_FLOPS
-    t_ops, t_bytes = flops / peak, nbytes / H100_BYTES_PER_S
+# multiply-adds per view (or train sample) of the decoder's convs: conv1 on the
+# upsampled gated latent, and conv2..conv5 (the tail every eval form shares)
+CONV1_MACS = 128 * 256 * 3 * 256
+TAIL_MACS = 128 * 128 * 3 * 256 + 64 * 128 * 3 * 512 + 64 * 64 * 3 * 512 + 64 * 3 * 512
+
+
+def bound_ms(flops: float, n_bytes: float, dtype) -> tuple[float, str]:
+    """Least time for this work: bytes (each input read once, each output
+    written once) over the HBM rate vs operations over the peak of the
+    storage type."""
+    peak = H100_BF16_FLOPS if dtype == torch.bfloat16 else H100_F32_FLOPS
+    t_ops, t_bytes = flops / peak, n_bytes / H100_BYTES_PER_S
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def a1_bound_ms(U, ep, folded, n_views: int) -> tuple[float, str]:
+    """Least time for the A1 function on these inputs."""
+    J = ep.shape[-1]
+    flops = 2 * (J * 128 * 256 + TAIL_MACS) * n_views
+    n_bytes = (nbytes(U, ep) + nbytes(*(t for k, t in folded.items() if k not in ("w1", "A")))
+               + n_views * 512 * 4)
+    return bound_ms(flops, n_bytes, U.dtype)
 
 
 def encoder_convs(L: int) -> list[tuple[int, int, int, int]]:
@@ -126,9 +170,7 @@ def encoder_bound_ms(nbytes: int, dtype, batch: int, backward: bool) -> tuple[fl
     fwd = 2 * batch * sum(co * ci * k * t for co, ci, k, t in convs)
     co, ci, k, t = convs[0]
     flops = 2 * fwd - 2 * batch * co * ci * k * t if backward else fwd
-    peak = H100_BF16_FLOPS if dtype == torch.bfloat16 else H100_F32_FLOPS
-    t_ops, t_bytes = flops / peak, nbytes / H100_BYTES_PER_S
-    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+    return bound_ms(flops, nbytes, dtype)
 
 
 def nbytes(*tensors) -> int:
@@ -140,7 +182,8 @@ def grad_errors(a, b):
     a, b = a.double().flatten(), b.double().flatten()
     bulk = float(((a - b).abs() / max(float(b.abs().max()), 1e-3) > 2e-4).double().mean())
     l2 = float((a - b).norm() / max(float(b.norm()), 1e-12))
-    corr = float(np.corrcoef(a.cpu().numpy(), b.cpu().numpy())[0, 1]) if b.abs().max() > 0 else 1.0
+    # one number, or all zeros, has no correlation: its L2 error is what is held
+    corr = float(np.corrcoef(a.cpu().numpy(), b.cpu().numpy())[0, 1]) if b.numel() > 1 and b.abs().max() > 0 else 1.0
     return bulk, l2, corr
 
 
@@ -254,61 +297,246 @@ def encoder_kernels(card: str, dev) -> dict:
     return stats
 
 
+def check_views(name: str, out, ref32, same, dt, shape) -> tuple[bool, float, str]:
+    """A decode form's output against the float32 plain version (the A1
+    bars) and the plain version of its own dtype: (ok, max abs error, line)."""
+    err, corr = compare(out, ref32)
+    err_same, _ = compare(out, same)
+    ok = (err <= F32_TOL) if dt == torch.float32 else (err <= BF16_TOL and corr > BF16_CORR)
+    ok = ok and tuple(out.shape) == shape and bool(torch.isfinite(out).all())
+    key = "f32" if dt == torch.float32 else "bf16"
+    return ok, err, (f"{name} {key} B={shape[0]} V={shape[1]}: max|kernel - plain f32| = {err:.3e} "
+                     f"corr {corr:.7f} (max|kernel - plain {key}| = {err_same:.3e})")
+
+
+def forms_kernels(card: str, dev, params, latent, folded, rng) -> dict:
+    """The gate-input form (A5, and A7 as its float32 instantiation) and the
+    y1 form (A6) against their plain versions at B=32, V=336 and V=11, in
+    float32 and bfloat16, at A1's bars. Returns {"decoder_gates_f32": {...},
+    ...} with max_abs_err, ms, plain_ms, bound_ms, bound_by."""
+    from electrocardio_panorama_tpu_torch.models import query_gates
+    from electrocardio_panorama_tpu_torch.ops import angular_encode, full_f32
+    from electrocardio_panorama_tpu_torch.ops.kernels import decoder_fused as a1
+
+    stats = {}
+    with torch.no_grad():
+        for n_views in (V_MAIN, V_PAD):
+            thetas = torch.tensor(rng.uniform(-np.pi, np.pi, (B, n_views, 2)), dtype=torch.float32, device=dev)
+            enc = angular_encode(thetas)
+            with full_f32():
+                gates = query_gates(params, thetas)
+            for form, kw in (("gates", {"gates": gates}), ("y1", {"enc": enc, "head": "y1"})):
+                ref = a1.fused_decode_views(folded[torch.float32], latent, v_tile=VIEW_TILE, plain=True, **kw)
+                for dt, key in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+                    out = a1.fused_decode_views(folded[dt], latent, v_tile=VIEW_TILE, **kw)
+                    torch.cuda.synchronize()
+                    same = a1.fused_decode_views(folded[dt], latent, v_tile=VIEW_TILE, plain=True, **kw)
+                    ok, err, line = check_views(f"decoder_{form}", out, ref, same, dt, (B, n_views, 512))
+                    if not ok:
+                        log("kernels", "FAIL " + line)
+                        raise SystemExit(1)
+                    st = stats.setdefault(f"decoder_{form}_{key}", {"max_abs_err": 0.0})
+                    st["max_abs_err"] = max(st["max_abs_err"], err)
+                    del out, same
+                    if n_views == V_MAIN:
+                        n = B * n_views
+                        weights = [t for k, t in folded[dt].items() if k not in ("A", "w1", "b1")]
+                        if form == "gates":
+                            lat = latent.to(dt)
+                            ms = cuda_ms(lambda: a1.decode_gates_cuda(lat, gates, folded[dt]), reps=5)
+                            plain_ms = cuda_ms(lambda: a1.decode_gates_plain(lat, gates, folded[dt]), reps=2)
+                            flops = 2 * (CONV1_MACS + TAIL_MACS) * n
+                            in_bytes = nbytes(lat, gates, folded[dt]["w1"], folded[dt]["b1"], *weights)
+                        else:
+                            y1 = a1.basis_y1(folded[dt], latent, enc)
+                            ms = cuda_ms(lambda: a1.decode_y1_cuda(y1, folded[dt]), reps=5)
+                            plain_ms = cuda_ms(lambda: a1.decode_y1_plain(y1, folded[dt]), reps=2)
+                            flops = 2 * TAIL_MACS * n
+                            in_bytes = nbytes(y1, *weights)
+                            del y1
+                        bms, bby = bound_ms(flops, in_bytes + n * 512 * 4, dt)
+                        st.update(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=bby)
+                        line += (f" | kernel {ms:.3f} ms/launch = {n / ms * 1e3:,.0f} views/s, plain "
+                                 f"{plain_ms:.3f} ms, bound {bms:.4f} ms ({bby}) on {card}")
+                    log("kernels", "ok " + line)
+                del ref
+                torch.cuda.empty_cache()
+    return stats
+
+
+def train_decoder_kernels(card: str, dev) -> dict:
+    """A4f/A4b against the plain version at 3 groups of 32 samples in float32
+    and bfloat16: the output, the batch moments, dx and all 18 parameter
+    gradients under a fixed cotangent, with the model's BN offsets and (in
+    float32) with offsets that leave every relu open; bitwise-equal results
+    across two launches. Returns {"decoder_train_fwd_f32": {...}, ...} with
+    max_abs_err, ms, plain_ms, bound_ms, bound_by."""
+    from electrocardio_panorama_tpu_torch.models import init_nefnet
+    from electrocardio_panorama_tpu_torch.ops import full_f32
+    from electrocardio_panorama_tpu_torch.ops.kernels import decoder_train as a4
+
+    G, nb = 3, B
+    rng = np.random.default_rng(4)
+    params, _ = init_nefnet(torch.Generator().manual_seed(4), lead_num=LEADS, device=dev)
+    for key in a4.BN_KEYS:  # non-trivial BN affines
+        for leaf, spread in (("weight", 0.2), ("bias", 0.2)):
+            v = params[f"{key}.{leaf}"]
+            params[f"{key}.{leaf}"] = v + torch.tensor(rng.normal(0, spread, v.shape), dtype=torch.float32, device=dev)
+    x32 = torch.tensor(rng.normal(0, 0.5, (G, 256, nb * 128)), dtype=torch.float32, device=dev)
+    dout = torch.tensor(rng.normal(0, 1, (G, nb, 512)), dtype=torch.float32, device=dev)
+    noise_keys = ("b1", "b2", "b3", "b4")
+    stats = {}
+
+    def run(w, x0, plain):
+        ws = {k: v.clone().requires_grad_(True) for k, v in w.items()}
+        x = x0.clone().requires_grad_(True)
+        with full_f32():
+            out, mean, var = a4.train_decode_groups(ws, x, plain=plain)
+            out.backward(dout)
+        return {"out": out.detach(), "mean": mean, "var": var}, {"x": x.grad, **{k: v.grad for k, v in ws.items()}}
+
+    def grads_ok(got, ref, l2_bar, corr_bar):
+        """(ok, max abs error, (L2 relative, corr, name) of the worst gradient)."""
+        ok, err, worst = True, 0.0, (0.0, 1.0, "")
+        for k, r in ref.items():
+            g, r = got[k].float(), r.float()
+            err = max(err, float((g - r).abs().max()))
+            if k in noise_keys:
+                ok = ok and float(g.abs().max()) <= DEC_NOISE and float(r.abs().max()) <= DEC_NOISE
+                continue
+            _, l2, corr = grad_errors(g, r)
+            if l2 >= worst[0]:
+                worst = (l2, corr, k)
+            ok = ok and l2 <= l2_bar and corr > corr_bar and bool(torch.isfinite(g).all())
+        return ok, err, worst
+
+    for dt, name in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        w = a4.pack_train_weights(params, dtype=dt)
+        x = x32.to(dt)
+        ref_fwd, ref_grads = run(w, x, True)
+        fwd, grads = run(w, x, False)
+        fwd2, grads2 = run(w, x, False)
+        torch.cuda.synchronize()
+        bitwise = (all(torch.equal(fwd[k], fwd2[k]) for k in fwd)
+                   and all(torch.equal(grads[k], grads2[k]) for k in grads))
+        fwd_err = float((fwd["out"] - ref_fwd["out"]).abs().max())
+        stat_err = max(float((fwd[k] - ref_fwd[k]).abs().max()) for k in ("mean", "var"))
+        pad_zero = float(fwd["mean"][:, 2:, 64:].abs().max()) == 0 and float(fwd["var"][:, 2:, 64:].abs().max()) == 0
+        ok = bitwise and pad_zero and tuple(fwd["out"].shape) == (G, nb, 512) and bool(torch.isfinite(fwd["out"]).all())
+        if dt == torch.float32:
+            ok = ok and fwd_err <= F32_TOL and all(
+                torch.allclose(fwd[k], ref_fwd[k], rtol=1e-5, atol=1e-5) for k in ("mean", "var"))
+            g_ok, bwd_err, worst = grads_ok(grads, ref_grads, DEC_F32_GRAD_L2, DEC_F32_GRAD_CORR)
+            # every relu open: the BN offsets at +8 leave summation order alone
+            w_open = {k: (v + 8.0 if k[0] == "o" else v) for k, v in w.items()}
+            open_ref, open_ref_grads = run(w_open, x, True)
+            open_fwd, open_grads = run(w_open, x, False)
+            o_ok, _, o_worst = grads_ok(open_grads, open_ref_grads, DEC_F32_OPEN_L2, DEC_F32_GRAD_CORR)
+            o_ok = o_ok and float((open_fwd["out"] - open_ref["out"]).abs().max()) <= F32_TOL
+            ok = ok and g_ok and o_ok
+            extra = f"; every relu open: worst grad {o_worst[2]} L2 {o_worst[0]:.2e}"
+        else:
+            _, corr = compare(fwd["out"], ref_fwd["out"])
+            ok = ok and fwd_err <= DEC_BF16_FWD and corr > DEC_BF16_FWD_CORR and stat_err <= DEC_BF16_STAT
+            g_ok, bwd_err, worst = grads_ok(grads, ref_grads, ENC_BF16_GRAD_L2, ENC_BF16_GRAD_CORR)
+            ok = ok and g_ok
+            extra = ""
+        line = (f"decoder_train {name} G={G} nb={nb}: out max|kernel - plain| {fwd_err:.3e}, moments {stat_err:.3e}; "
+                f"worst grad {worst[2]}: L2 {worst[0]:.2e} corr {worst[1]:.6f}; max|dgrad| {bwd_err:.3e}{extra}; "
+                f"bitwise across a repeat launch: {bitwise}")
+        if not ok:
+            log("kernels", "FAIL " + line)
+            raise SystemExit(1)
+
+        # timing: one launch each, the plain version on the same inputs
+        fwd_ms = cuda_ms(lambda: a4.forward_cuda(w, x), reps=10)
+        bwd_ms = cuda_ms(lambda: a4.backward_cuda(w, x, dout), reps=10)
+        with torch.no_grad():
+            plain_fwd_ms = cuda_ms(lambda: a4.train_decode_groups_plain(w, x), reps=3)
+        ws = {k: v.clone().requires_grad_(True) for k, v in w.items()}
+        xg = x.clone().requires_grad_(True)
+        with full_f32():
+            out_p, _, _ = a4.train_decode_groups_plain(ws, xg)
+            plain_bwd_ms = cuda_ms(lambda: torch.autograd.grad([out_p], [xg, *ws.values()], [dout],
+                                                               retain_graph=True), reps=3)
+        # operations: the forward's convs; the backward recomputes them (its
+        # inputs are x, the weights and dout only) and takes every data and
+        # every weight gradient, twice the forward again
+        fwd_flops = 2 * (CONV1_MACS + TAIL_MACS) * G * nb
+        wbytes = nbytes(*w.values())
+        fb, fby = bound_ms(fwd_flops, nbytes(x, fwd["out"], fwd["mean"], fwd["var"]) + wbytes, dt)
+        grad_bytes = nbytes(x.float()) + sum(v.numel() * 4 for v in w.values())  # float32 gradients
+        bb, bby = bound_ms(3 * fwd_flops, nbytes(x, dout) + wbytes + grad_bytes, dt)
+        stats[f"decoder_train_fwd_{name}"] = dict(max_abs_err=fwd_err, ms=fwd_ms, plain_ms=plain_fwd_ms,
+                                                  bound_ms=fb, bound_by=fby)
+        stats[f"decoder_train_bwd_{name}"] = dict(max_abs_err=bwd_err, ms=bwd_ms, plain_ms=plain_bwd_ms,
+                                                  bound_ms=bb, bound_by=bby)
+        log("kernels", f"ok {line} | A4f {fwd_ms:.3f} ms/launch (plain {plain_fwd_ms:.3f} ms, bound {fb:.4f} ms "
+                       f"{fby}), A4b {bwd_ms:.3f} ms/launch (plain {plain_bwd_ms:.3f} ms, bound {bb:.4f} ms "
+                       f"{bby}) on {card}")
+    return stats
+
+
 def train_phase(card: str, tmp: str) -> dict:
-    """`main.main` at batch 32 for TRAIN_STEPS steps and one eval epoch, in
-    float32 (TPU.train_encoder fused) and bfloat16 (auto), each held against
-    the same run with the eager encoder; then one step of each from the same
-    init, the params compared, and steady-state steps/s. Returns the A2/A3
-    launch counts of the fused runs, {"encoder_fwd_f32": n, ...}."""
+    """`main.main` at batch 32 for TRAIN_STEPS steps and one eval epoch, four
+    runs with kernels in the train step, each held against the same run
+    without the kernels under test (same batches, same masks):
+      float32, TPU.train_encoder fused            vs the eager encoder   (A2/A3)
+      bfloat16, TPU.train_encoder auto            vs the eager encoder   (A2/A3)
+      float32, TPU.train_decoder fused, eager encoder vs all eager       (A4f/A4b)
+      bfloat16, train_decoder fused + train_encoder auto vs the eager decoder
+                                                  (every train kernel in one step)
+    then one step of each from the same init, the params compared, and
+    steady-state steps/s; and the float32 step with both fused twice from
+    the same init, bitwise compared. Returns the launch counts of the runs
+    with kernels, {"encoder_fwd_f32": n, ..., "decoder_train_fwd_f32": n, ...}."""
     from electrocardio_panorama_tpu_torch import main as train_main
     from electrocardio_panorama_tpu_torch.config import load_cfg
     from electrocardio_panorama_tpu_torch.data import BeatLoader, build_dataset
     from electrocardio_panorama_tpu_torch.ops.kernels import decoder_fused as a1
+    from electrocardio_panorama_tpu_torch.ops.kernels import decoder_train as a4
     from electrocardio_panorama_tpu_torch.ops.kernels import encoder_fused as a2
     from electrocardio_panorama_tpu_torch.training.solver import Solver
 
-    def cfg_for(dtype, enc, name):
+    def cfg_for(dtype, enc, dec, name):
         return load_cfg("configs/nef_net_synthetic.yml", [
-            "output_dir", f"{tmp}/{name}", "DATA.synthetic_root", f"{tmp}/train_synth",
+            "output_dir", f"{tmp}/{name}_{dtype}_{enc}_{dec}", "DATA.synthetic_root", f"{tmp}/train_synth",
             "DATA.synthetic_n_train", str(B * TRAIN_STEPS), "DATA.synthetic_n_test", str(TRAIN_N_TEST),
             "DATA.batch_size", str(B), "SOLVER.epochs", "1", "TPU.steps_per_epoch", str(TRAIN_STEPS),
-            "TPU.compute_dtype", dtype, "TPU.train_encoder", enc])
+            "TPU.compute_dtype", dtype, "TPU.train_encoder", enc, "TPU.train_decoder", dec])
 
-    launches = {}
-    for dtype, mode in (("float32", "fused"), ("bfloat16", "auto")):
-        key = "f32" if dtype == "float32" else "bf16"
-        a2.LAUNCHES.clear()
-        a1.LAUNCHES.clear()
-        torch.cuda.synchronize()
-        fused = train_main.main(cfg_for(dtype, mode, f"train_{key}"), device="cuda")
-        torch.cuda.synchronize()
-        n_fwd, n_bwd = a2.LAUNCHES[f"fwd_{dtype}"], a2.LAUNCHES[f"bwd_{dtype}"]
-        n_a1 = sum(a1.LAUNCHES.values())
-        eager = train_main.main(cfg_for(dtype, "xla", f"train_{key}_eager"), device="cuda")
-        hf, he = fused.history[0], eager.history[0]
-        lf, le = hf["train_losses"][:, 0], he["train_losses"][:, 0]
-        loss_rel = float(np.max(np.abs(lf - le) / np.abs(le)))
-        sc = hf["scalars"]
+    runs, steps = {}, {}
 
-        # one step of each from the same init on the same batch and masks
-        cfg_f, cfg_e = cfg_for(dtype, mode, f"step_{key}"), cfg_for(dtype, "xla", f"step_{key}_eager")
-        loader = BeatLoader(build_dataset(cfg_f, "train"), B, shuffle=True, drop_last=True, seed=cfg_f.seed)
-        batches = [b for _, b in zip(range(TRAIN_STEPS), loader)]
+    def run_main(dtype, enc, dec):
+        """(history of the one epoch, kernel launches of the run), once per configuration."""
+        if (dtype, enc, dec) not in runs:
+            for counter in (a1.LAUNCHES, a2.LAUNCHES, a4.LAUNCHES):
+                counter.clear()
+            torch.cuda.synchronize()
+            solver = train_main.main(cfg_for(dtype, enc, dec, "train"), device="cuda")
+            torch.cuda.synchronize()
+            runs[dtype, enc, dec] = (solver.history[0], {
+                "A1": a1.LAUNCHES["float32"] + a1.LAUNCHES["bfloat16"],
+                "A2": a2.LAUNCHES[f"fwd_{dtype}"], "A3": a2.LAUNCHES[f"bwd_{dtype}"],
+                "A4f": a4.LAUNCHES[f"fwd_{dtype}"], "A4b": a4.LAUNCHES[f"bwd_{dtype}"]})
+        return runs[dtype, enc, dec]
 
-        def first_step(solver):
-            params, bn, opt = solver.init_state()
-            p0 = {k: v.detach().clone() for k, v in params.items()}
-            bn, _ = solver.train_step(params, bn, opt, epoch=0, step=0, i1=1, i2=2, batch=batches[0])
-            return p0, params, bn, opt
+    loader = BeatLoader(build_dataset(cfg_for("float32", "xla", "xla", "data"), "train"), B, shuffle=True,
+                        drop_last=True, seed=cfg_for("float32", "xla", "xla", "data").seed)
+    batches = [b for _, b in zip(range(TRAIN_STEPS), loader)]
 
-        def dist(a, b):  # |a - b| over the size of the eager update
-            return float(torch.cat([(a[k] - b[k]).flatten() for k in p0]).norm() / upd.norm())
+    def first_step(solver):
+        params, bn, opt = solver.init_state()
+        p0 = {k: v.detach().clone() for k, v in params.items()}
+        bn, _ = solver.train_step(params, bn, opt, epoch=0, step=0, i1=1, i2=2, batch=batches[0])
+        return p0, params, bn, opt
 
-        after, rates = {}, {}
-        for name, cfg in (("fused", cfg_f), ("eager", cfg_e)):
-            solver = Solver(cfg, use_writer=False, device="cuda")
+    def run_steps(dtype, enc, dec):
+        """(init params, params after one step, steady steps/s), once per configuration."""
+        if (dtype, enc, dec) not in steps:
+            solver = Solver(cfg_for(dtype, enc, dec, "step"), use_writer=False, device="cuda")
             p0, params, bn, opt = first_step(solver)
-            after[name] = {k: v.detach().clone() for k, v in params.items()}
+            after = {k: v.detach().clone() for k, v in params.items()}
             for b in batches[1:]:  # warm-up
                 bn, _ = solver.train_step(params, bn, opt, epoch=0, step=1, i1=0, i2=1, batch=b)
             torch.cuda.synchronize()
@@ -318,18 +546,43 @@ def train_phase(card: str, tmp: str) -> dict:
                 for i, b in enumerate(batches):
                     bn, _ = solver.train_step(params, bn, opt, epoch=1, step=i, i1=i % 3, i2=(i + 1) % 3, batch=b)
             torch.cuda.synchronize()
-            rates[name] = reps * len(batches) / (time.perf_counter() - t0)
-        upd = torch.cat([(after["eager"][k] - p0[k]).flatten() for k in p0])
-        upd_rel = dist(after["fused"], after["eager"])
-        # determinism: the fused step again from the same init, bitwise
-        _, again, _, _ = first_step(Solver(cfg_f, use_writer=False, device="cuda"))
-        repeat_bitwise = all(torch.equal(again[k].detach(), after["fused"][k]) for k in p0)
-        extra = f"; fused step repeated from the same init bitwise equal: {repeat_bitwise}"
-        if dtype == "float32":
+            steps[dtype, enc, dec] = (p0, after, reps * len(batches) / (time.perf_counter() - t0))
+        return steps[dtype, enc, dec]
+
+    def repeat_bitwise(dtype, enc, dec):
+        """The first step again from the same init: equal bits?"""
+        _, after, _ = run_steps(dtype, enc, dec)
+        _, again, _, _ = first_step(Solver(cfg_for(dtype, enc, dec, "again"), use_writer=False, device="cuda"))
+        return all(torch.equal(again[k].detach(), after[k]) for k in after)
+
+    cases = (("float32", ("fused", "xla"), ("xla", "xla"), ("A2", "A3")),
+             ("bfloat16", ("auto", "xla"), ("xla", "xla"), ("A2", "A3")),
+             ("float32", ("xla", "fused"), ("xla", "xla"), ("A4f", "A4b")),
+             ("bfloat16", ("auto", "fused"), ("auto", "xla"), ("A2", "A3", "A4f", "A4b")))
+    launches = {}
+    for dtype, (enc, dec), (base_enc, base_dec), kernels in cases:
+        key = "f32" if dtype == "float32" else "bf16"
+        hf, counts = run_main(dtype, enc, dec)
+        he, _ = run_main(dtype, base_enc, base_dec)
+        lf, le = hf["train_losses"][:, 0], he["train_losses"][:, 0]
+        loss_rel = float(np.max(np.abs(lf - le) / np.abs(le)))
+        sc = hf["scalars"]
+
+        # one step of each from the same init on the same batch and masks
+        p0, after, rate = run_steps(dtype, enc, dec)
+        _, after_base, rate_base = run_steps(dtype, base_enc, base_dec)
+        upd = torch.cat([(after_base[k] - p0[k]).flatten() for k in p0])
+
+        def dist(a, b):  # |a - b| over the size of the baseline's update
+            return float(torch.cat([(a[k] - b[k]).flatten() for k in p0]).norm() / upd.norm())
+
+        upd_rel = dist(after, after_base)
+        extra = f"; the step repeated from the same init bitwise equal: {repeat_bitwise(dtype, enc, dec)}"
+        if dtype == "float32" and (enc, dec) == ("fused", "xla"):
             # the eager step with its backward left to PyTorch's default cuDNN
             # TF32 (the forward convs stay pinned): what full_f32 around
             # loss.backward() guards against
-            loose = Solver(cfg_e, use_writer=False, device="cuda")
+            loose = Solver(cfg_for(dtype, "xla", "xla", "tf32"), use_writer=False, device="cuda")
             loose._precision = contextlib.nullcontext
             saved = torch.backends.cudnn.allow_tf32
             torch.backends.cudnn.allow_tf32 = True
@@ -338,31 +591,41 @@ def train_phase(card: str, tmp: str) -> dict:
             finally:
                 torch.backends.cudnn.allow_tf32 = saved
             extra += (f"; eager step with a TF32 backward: |tf32 - eager| / |update| = "
-                      f"{dist({k: v.detach() for k, v in tf32.items()}, after['eager']):.2e}")
+                      f"{dist({k: v.detach() for k, v in tf32.items()}, after_base):.2e}")
 
         finite = all(np.isfinite(v) for v in sc.values()) and np.isfinite(hf["train_losses"]).all()
-        line = (f"{dtype} TPU.train_encoder {mode}: {hf['train_steps']} steps at B={B} + eval epoch of "
-                f"{hf['eval_views']} views; losses {np.round(lf, 6).tolist()} vs eager "
+        line = (f"{dtype} TPU.train_encoder {enc} TPU.train_decoder {dec} vs {base_enc}/{base_dec}: "
+                f"{hf['train_steps']} steps at B={B} + eval epoch of "
+                f"{hf['eval_views']} views; losses {np.round(lf, 6).tolist()} vs "
                 f"{np.round(le, 6).tolist()}: max rel {loss_rel:.2e} (bar {TRAIN_LOSS_REL[dtype]:g}); "
-                f"params after step 1: |fused - eager| / |update| = {upd_rel:.2e} (bar "
+                f"params after step 1: |kernels - baseline| / |update| = {upd_rel:.2e} (bar "
                 f"{TRAIN_UPDATE_REL[dtype]:g}); psnr_gen {sc['psnr_gen']:.3f} ssim_gen {sc['ssim_gen']:.4f}; "
-                f"launches A2 {n_fwd} A3 {n_bwd} A1 {n_a1}; eval {hf['eval_views'] / hf['eval_s']:,.0f} views/s; "
-                f"train steps/s steady {rates['fused']:.2f} (eager encoder {rates['eager']:.2f}), "
+                f"launches {' '.join(f'{k} {v}' for k, v in counts.items())}; "
+                f"eval {hf['eval_views'] / hf['eval_s']:,.0f} views/s; "
+                f"train steps/s steady {rate:.2f} (baseline {rate_base:.2f}), "
                 f"first epoch {hf['train_steps'] / hf['train_s']:.2f} with warm-up{extra}; on {card}")
         ok = (finite and loss_rel <= TRAIN_LOSS_REL[dtype] and upd_rel <= TRAIN_UPDATE_REL[dtype]
-              and n_fwd > 0 and n_bwd > 0 and n_a1 > 0 and hf["train_steps"] == TRAIN_STEPS)
+              and all(counts[k] > 0 for k in kernels) and counts["A1"] > 0 and hf["train_steps"] == TRAIN_STEPS)
         if not ok:
             log("train", "FAIL " + line)
             raise SystemExit(1)
         log("train", "ok " + line)
-        launches[f"encoder_fwd_{key}"], launches[f"encoder_bwd_{key}"] = n_fwd, n_bwd
+        if dec == "xla":
+            launches[f"encoder_fwd_{key}"], launches[f"encoder_bwd_{key}"] = counts["A2"], counts["A3"]
+        else:
+            launches[f"decoder_train_fwd_{key}"] = counts["A4f"]
+            launches[f"decoder_train_bwd_{key}"] = counts["A4b"]
+
+    # with both pairs fused no cuDNN backward convolution is left in the step
+    log("train", f"float32 step with TPU.train_encoder fused and TPU.train_decoder fused, twice from the same "
+                 f"init: bitwise equal: {repeat_bitwise('float32', 'fused', 'fused')}; steady "
+                 f"{run_steps('float32', 'fused', 'fused')[2]:.2f} steps/s; on {card}")
 
     # roi_reverse is a batched matmul, so its backward has no atomics: two
     # gradients from the same inputs are bitwise equal
     from electrocardio_panorama_tpu_torch.ops import roi_reverse_1d
 
-    batch = next(iter(loader))
-    rois = torch.as_tensor(batch["rois"], device="cuda")
+    rois = torch.as_tensor(batches[0]["rois"], device="cuda")
     grid = torch.randn(B, 384, 7, 32, device="cuda", generator=torch.Generator("cuda").manual_seed(3))
     cot = torch.randn(B, 384, 128, device="cuda", generator=torch.Generator("cuda").manual_seed(4))
     g = []
@@ -393,12 +656,13 @@ def main() -> int:
     log("device", f"{kind} | nvidia-smi: {card} | torch {torch.__version__} cuda {torch.version.cuda}")
 
     from electrocardio_panorama_tpu_torch.config import load_cfg
-    from electrocardio_panorama_tpu_torch.models import build_model, init_nefnet
-    from electrocardio_panorama_tpu_torch.ops import angular_encode
+    from electrocardio_panorama_tpu_torch.data import BeatLoader, build_dataset
+    from electrocardio_panorama_tpu_torch.models import build_model, init_nefnet, query_gates
+    from electrocardio_panorama_tpu_torch.ops import angular_encode, full_f32
     from electrocardio_panorama_tpu_torch.ops.kernels import build
     from electrocardio_panorama_tpu_torch.ops.kernels import decoder_fused as a1
     from electrocardio_panorama_tpu_torch import render
-    from electrocardio_panorama_tpu_torch.synthesis import theta_grid
+    from electrocardio_panorama_tpu_torch.synthesis import PanoramaGenerator, theta_grid
     from electrocardio_panorama_tpu_torch.training.checkpoint import CheckPointer
 
     # ----------------------------------------------------------------- 2. build
@@ -442,12 +706,7 @@ def main() -> int:
                 out = a1.fused_decode_views(folded[dt], latent, enc=enc, v_tile=VIEW_TILE)
                 torch.cuda.synchronize()
                 same = a1.fused_decode_views(folded[dt], latent, enc=enc, v_tile=VIEW_TILE, plain=True)
-                err, corr = compare(out, ref)
-                err_same, _ = compare(out, same)
-                ok = (err <= F32_TOL) if dt == torch.float32 else (err <= BF16_TOL and corr > BF16_CORR)
-                ok = ok and out.shape == (B, n_views, 512) and bool(torch.isfinite(out).all())
-                line = (f"decoder_basis {name} B={B} V={n_views}: max|kernel - plain f32| = {err:.3e} "
-                        f"corr {corr:.7f} (max|kernel - plain {name}| = {err_same:.3e})")
+                ok, err, line = check_views("decoder_basis", out, ref, same, dt, (B, n_views, 512))
                 if not ok:
                     log("kernels", "FAIL " + line)
                     return 1
@@ -463,7 +722,12 @@ def main() -> int:
                     line += (f" | kernel {ms:.3f} ms/launch = {B * n_views / ms * 1e3:,.0f} views/s, "
                              f"plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by}) on {card}")
                 log("kernels", "ok " + line)
+    form_stats = forms_kernels(card, dev, params, latent, folded, rng)
+    del folded, latent
+    torch.cuda.empty_cache()
     enc_stats = encoder_kernels(card, dev)
+    dec_stats = train_decoder_kernels(card, dev)
+    torch.cuda.empty_cache()
 
     # ---------------------------------------------------------------- 4. render
     with tempfile.TemporaryDirectory() as tmp:
@@ -503,9 +767,43 @@ def main() -> int:
             a1_stats[key]["launches"] = launches[name]
             log("render", "ok " + line)
 
+        # the other entries of fused_decode_views, on the render checkpoint and
+        # the first render batch's latents, against the views just rendered
+        batch = next(iter(BeatLoader(build_dataset(cfg, phase="test"), B, shuffle=False, drop_last=False,
+                                     seed=cfg.seed)))
+        views = torch.tensor(theta_grid(7, 12), device=dev)[None].expand(B, n_views, 2)
+        a1.LAUNCHES.clear()
+        form_outs = {}
+        for name, dt in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+            gen = PanoramaGenerator(model, p0, s0, compute_dtype=dt, use_fused=True, device="cuda")
+            latent = gen.encode(batch["data"], batch["input_theta"], batch["rois"])
+            with torch.no_grad(), full_f32():
+                gates = query_gates(gen.params, views.to(dt)).float()
+                enc = angular_encode(views.to(dt), 1)
+                form_outs["gates", name] = a1.fused_decode_views(gen._folded, latent, gates, v_tile=VIEW_TILE)
+                form_outs["y1", name] = a1.fused_decode_views(gen._folded, latent, enc=enc, v_tile=VIEW_TILE,
+                                                              head="y1")
+        torch.cuda.synchronize()
+        launches = dict(a1.LAUNCHES)
+        for (form, name), out in form_outs.items():
+            key = "f32" if name == "float32" else "bf16"
+            rendered = torch.from_numpy(results[name][0][:B]).to(dev)
+            err, corr = compare(out, rendered)
+            n = launches.get(f"{form}_{name}", 0)
+            good = tuple(out.shape) == (B, n_views, 512) and bool(torch.isfinite(out).all()) and n > 0
+            good = good and (err <= F32_TOL if name == "float32" else err <= BF16_TOL and corr > BF16_PAIR_CORR)
+            line = (f"fused_decode_views {form} form, {name}: {B} beats x {n_views} views; kernel launches {n}; "
+                    f"max|form - rendered (A1)| {err:.3e} corr {corr:.7f}")
+            if not good:
+                log("render", "FAIL " + line)
+                return 1
+            form_stats[f"decoder_{form}_{key}"]["launches"] = n
+            log("render", "ok " + line)
+        del form_outs
+
         # ------------------------------------------------------------- 5. train
         for name, n in train_phase(card, tmp).items():
-            enc_stats[name]["launches"] = n
+            (enc_stats if name.startswith("encoder") else dec_stats)[name]["launches"] = n
 
     # --------------------------------------------------------------- 6. summary
     kernels = [{
@@ -514,11 +812,13 @@ def main() -> int:
         "plain_ms": st["plain_ms"], "bound_ms": st["bound_ms"], "bound_by": st["bound_by"],
         "library_ms": None,
     } for key, st in a1_stats.items()]
-    for name, st in enc_stats.items():
-        fwd = name.startswith("encoder_fwd")
+    where = {"encoder_fwd": (A2_SOURCE, A2_REPLACES), "encoder_bwd": (A3_SOURCE, A3_REPLACES),
+             "decoder_train_fwd": (A4F_SOURCE, A4F_REPLACES), "decoder_train_bwd": (A4B_SOURCE, A4B_REPLACES)}
+    for name, st in {**enc_stats, **dec_stats, **form_stats}.items():
+        source, replaces = where.get(name.rsplit("_", 1)[0], (FORMS_SOURCE, FORMS_REPLACES.get(name)))
+        # library_ms: no single PyTorch call computes any of these chains
         kernels.append({
-            "name": name, "route": "cuda", "source": A2_SOURCE if fwd else A3_SOURCE,
-            "replaces": A2_REPLACES if fwd else A3_REPLACES, "launches": st["launches"],
+            "name": name, "route": "cuda", "source": source, "replaces": replaces, "launches": st["launches"],
             "max_abs_err": st["max_abs_err"], "ms": st["ms"], "plain_ms": st["plain_ms"],
             "bound_ms": st["bound_ms"], "bound_by": st["bound_by"], "library_ms": None,
         })

@@ -73,10 +73,10 @@ def get_default_cfg() -> Node:
     # (e.g. configs/dense_sweep_v5e8.yml) loads unchanged in both packages.
     # The port reads param_dtype and compute_dtype ("float32" | "bfloat16"),
     # steps_per_epoch, profile_dir (a torch.profiler trace), check_nans,
-    # eval_decoder, train_encoder, encoder_ckpt and eval_encoder
-    # (training/solver.py).
-    # mesh_shape non-empty, checkpoint_backend 'orbax' and train_decoder
-    # 'fused' raise NotImplementedError until their slices land (ROADMAP.md).
+    # eval_decoder, train_decoder, train_encoder, encoder_ckpt and
+    # eval_encoder (training/solver.py).
+    # mesh_shape non-empty and checkpoint_backend 'orbax' raise
+    # NotImplementedError until their slices land (ROADMAP.md).
     cfg.TPU = Node()
     cfg.TPU.mesh_shape = []
     cfg.TPU.mesh_axes = ["data"]

@@ -24,191 +24,22 @@
 // Bound: about 64 MFLOP per view against a few hundred KB of input per beat,
 // so the work is bounded by operations. This first version is direct SIMT
 // convolution, one kernel per stage with the intermediate planes in device
-// memory; the mix is fused into conv2's input loads so y1 is never stored.
-// Each block computes a 64-channel x 64-step output tile, staging 16 input
-// channels (with the two halo steps) and their weights in shared memory per
-// step, and each thread accumulates a 4 x 4 register tile.
+// memory (the stage kernels are in decoder_common.cuh, shared with
+// decoder_forms.cu); the mix is fused into conv2's input loads so y1 is never
+// stored.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "decoder_common.cuh"
 
 namespace {
-
-constexpr int CO_T = 64;   // output channels per block
-constexpr int T_T = 64;    // output time steps per block
-constexpr int CI_T = 16;   // input channels staged per step
-constexpr int THREADS = 256;
-constexpr int MAXJ = 32;   // basis planes; 13 at theta_L=1
-constexpr int MAXC5 = 64;  // conv5 input channels
-
-enum Mode { MIX = 0, UP = 1, PLAIN = 2 };
-
-__device__ __forceinline__ float ld(const float* p) { return *p; }
-__device__ __forceinline__ float ld(const __nv_bfloat16* p) { return __bfloat162float(*p); }
-__device__ __forceinline__ void st(float* p, float v) { *p = v; }
-__device__ __forceinline__ void st(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
-
-template <typename S> __device__ __forceinline__ float round_s(float v);
-template <> __device__ __forceinline__ float round_s<float>(float v) { return v; }
-template <> __device__ __forceinline__ float round_s<__nv_bfloat16>(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
-
-// One conv3 + bias + ReLU stage. The input at conv position t (0 <= t < T) is
-//   MIX:   round_s(relu(sum_j ep[n, j] * U[n / views, j, ci, t] + b1[ci]))
-//   UP:    up2(x[n, ci, :T/2])[t]
-//   PLAIN: x[n, ci, t]
-// and zero outside [0, T) (the conv's padding).
-template <typename S, int MODE>
-__global__ void __launch_bounds__(THREADS)
-conv3_relu_kernel(const S* __restrict__ in, const float* __restrict__ ep,
-                  const float* __restrict__ b1, int J, int views,
-                  const S* __restrict__ w, const float* __restrict__ bias,
-                  S* __restrict__ out, int Cin, int Cout, int T) {
-  __shared__ float xs[CI_T][T_T + 2];
-  __shared__ float ws[3][CI_T][CO_T];
-  __shared__ float eps[MAXJ];
-
-  const int n = blockIdx.x;
-  const int t0 = blockIdx.y * T_T;
-  const int co0 = blockIdx.z * CO_T;
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-
-  const S* src;
-  if (MODE == MIX) {
-    if (tid < J) eps[tid] = ep[(size_t)n * J + tid];
-    src = in + (size_t)(n / views) * J * Cin * T;
-  } else {
-    src = in + (size_t)n * Cin * (MODE == UP ? T / 2 : T);
-  }
-
-  float acc[4][4];
-#pragma unroll
-  for (int j = 0; j < 4; ++j)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) acc[j][i] = 0.f;
-
-  for (int ci0 = 0; ci0 < Cin; ci0 += CI_T) {
-    __syncthreads();  // previous step's tiles are consumed; eps is visible
-    for (int e = tid; e < CI_T * (T_T + 2); e += THREADS) {
-      const int ci = e / (T_T + 2), s = e % (T_T + 2);
-      const int c = ci0 + ci, t = t0 + s - 1;
-      float v = 0.f;
-      if (c < Cin && t >= 0 && t < T) {
-        if (MODE == MIX) {
-          float a = 0.f;
-          for (int j = 0; j < J; ++j)
-            a = fmaf(eps[j], ld(src + ((size_t)j * Cin + c) * T + t), a);
-          v = round_s<S>(fmaxf(a + b1[c], 0.f));
-        } else if (MODE == UP) {
-          const int th = T / 2, k = t >> 1;
-          const S* x = src + (size_t)c * th;
-          const float xc = ld(x + k);
-          if (t & 1) {
-            v = __fadd_rn(__fmul_rn(0.75f, xc), __fmul_rn(0.25f, ld(x + min(k + 1, th - 1))));
-          } else {
-            v = __fadd_rn(__fmul_rn(0.25f, ld(x + max(k - 1, 0))), __fmul_rn(0.75f, xc));
-          }
-        } else {
-          v = ld(src + (size_t)c * T + t);
-        }
-      }
-      xs[ci][s] = v;
-    }
-    for (int e = tid; e < 3 * CI_T * CO_T; e += THREADS) {
-      const int ci = e % CI_T, co = (e / CI_T) % CO_T, k = e / (CI_T * CO_T);
-      float v = 0.f;
-      if (co0 + co < Cout && ci0 + ci < Cin)
-        v = ld(w + ((size_t)k * Cout + co0 + co) * Cin + ci0 + ci);
-      ws[k][ci][co] = v;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int ci = 0; ci < CI_T; ++ci) {
-#pragma unroll
-      for (int k = 0; k < 3; ++k) {
-        float xv[4], wv[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) xv[i] = xs[ci][tx + 16 * i + k];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) wv[j] = ws[k][ci][ty + 16 * j];
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-#pragma unroll
-          for (int i = 0; i < 4; ++i) acc[j][i] = fmaf(wv[j], xv[i], acc[j][i]);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int co = co0 + ty + 16 * j;
-    if (co >= Cout) continue;
-    const float b = bias[co];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int t = t0 + tx + 16 * i;
-      if (t < T) st(out + ((size_t)n * Cout + co) * T + t, fmaxf(acc[j][i] + b, 0.f));
-    }
-  }
-}
-
-// conv5 (Cout = 1) + sigmoid(x / 3), float output.
-template <typename S>
-__global__ void conv5_sigmoid_kernel(const S* __restrict__ in, const S* __restrict__ w,
-                                     const float* __restrict__ b5, float* __restrict__ out,
-                                     int Cin, int T) {
-  __shared__ float ws[3][MAXC5];
-  const int n = blockIdx.x;
-  const int t = blockIdx.y * blockDim.x + threadIdx.x;
-  for (int e = threadIdx.x; e < 3 * Cin; e += blockDim.x) ws[e / Cin][e % Cin] = ld(w + e);
-  __syncthreads();
-  if (t >= T) return;
-  const S* x = in + (size_t)n * Cin * T;
-  float acc = 0.f;
-  for (int c = 0; c < Cin; ++c) {
-#pragma unroll
-    for (int k = 0; k < 3; ++k) {
-      const int tt = t + k - 1;
-      if (tt >= 0 && tt < T) acc = fmaf(ws[k][c], ld(x + (size_t)c * T + tt), acc);
-    }
-  }
-  const float v = (acc + b5[0]) / 3.0f;
-  out[(size_t)n * T + t] = 1.0f / (1.0f + expf(-v));
-}
 
 template <typename S>
 int launch(const void* U, const void* ep, const void* b1, const void* w2, const void* b2,
            const void* w3, const void* b3, const void* w4, const void* b4, const void* w5,
            const void* b5, void* h2, void* h3, void* h4, void* out, int B, int V, int J,
            void* stream_ptr) {
-  if (B <= 0 || V <= 0 || J <= 0 || J > MAXJ) return (int)cudaErrorInvalidValue;
-  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  const int N = B * V;
-  const int C1 = 128, C2 = 64, T1 = 256, T2 = 512;
-  const dim3 block(THREADS);
-  cudaError_t err;
-
-  conv3_relu_kernel<S, MIX><<<dim3(N, T1 / T_T, C1 / CO_T), block, 0, stream>>>(
-      static_cast<const S*>(U), static_cast<const float*>(ep), static_cast<const float*>(b1), J, V,
-      static_cast<const S*>(w2), static_cast<const float*>(b2), static_cast<S*>(h2), C1, C1, T1);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-
-  conv3_relu_kernel<S, UP><<<dim3(N, T2 / T_T, C2 / CO_T), block, 0, stream>>>(
-      static_cast<const S*>(h2), nullptr, nullptr, 0, 1,
-      static_cast<const S*>(w3), static_cast<const float*>(b3), static_cast<S*>(h3), C1, C2, T2);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-
-  conv3_relu_kernel<S, PLAIN><<<dim3(N, T2 / T_T, C2 / CO_T), block, 0, stream>>>(
-      static_cast<const S*>(h3), nullptr, nullptr, 0, 1,
-      static_cast<const S*>(w4), static_cast<const float*>(b4), static_cast<S*>(h4), C2, C2, T2);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-
-  conv5_sigmoid_kernel<S><<<dim3(N, T2 / 128), dim3(128), 0, stream>>>(
-      static_cast<const S*>(h4), static_cast<const S*>(w5), static_cast<const float*>(b5),
-      static_cast<float*>(out), C2, T2);
-  return (int)cudaGetLastError();
+  if (B <= 0 || V <= 0 || J <= 0 || J > dec::MAXJ) return (int)cudaErrorInvalidValue;
+  return (int)dec::launch_tail<S, dec::MIX>(U, ep, b1, J, V, w2, b2, w3, b3, w4, b4, w5, b5, h2, h3,
+                                            h4, out, B * V, static_cast<cudaStream_t>(stream_ptr));
 }
 
 }  // namespace

@@ -1,0 +1,323 @@
+// Shared pieces of the fused train-mode Nef-Net decoder kernels (forward in
+// decoder_train_fwd.cu, backward in decoder_train_bwd.cu) for Hopper, sm_90a.
+//
+// Replaces the TPU kernels electrocardio_panorama_tpu/ops/pallas/decoder_train.py
+// ::_train_fwd_kernel and ::_train_bwd_kernel. Over G groups of nb samples
+// (the three decodes of a train step), with BatchNorm on each group's own
+// batch statistics:
+//
+//   a1 = conv3(up2(x); w1) + b1          h1 = round_s(relu(bn1(a1)))   [128, 256]
+//   a2 = conv3(h1; w2) + b2              h2 = round_s(relu(bn2(a2)))   [128, 256]
+//   a3 = conv3(up2(h2); w3) + b3         h3 = round_s(relu(bn3(a3)))   [ 64, 512]
+//   a4 = conv3(h3; w4) + b4              h4 = relu(bn4(a4))            [ 64, 512]
+//   out = sigmoid((conv3(round_s(h4); w5) + b5) / 3)                   [512]
+//
+// conv3 is a kernel-3, padding-1 convolution over time with tap-major weights
+// w[3, Cout, Cin]; up2 is torch's Upsample(x2, linear, align_corners=False)
+// with edge clamp, per sample. x arrives channel-major, [G, 256, nb*128], as
+// the TPU kernel takes it; every other plane is [G*nb, C, T]. Everything is in
+// plain time order: the TPU kernel's upsample-shift matmuls, lane shifts and
+// masks exist for Mosaic and have no counterpart here.
+//
+// S is the storage type of x, the weights and h1..h3: float, or __nv_bfloat16.
+// Every product and sum is float, the pre-BN planes a1..a4, h4, the moments and
+// the output are float, and BatchNorm runs in float. In the backward a
+// gradient is float and rounds to S only as a product's operand.
+//
+// BatchNorm's moments per (group, channel) come from a two-pass reduction
+// (the mean, then the mean of squared deviations): more accurate than the TPU
+// kernel's E[a^2] - mean^2 and equal to it within rounding. One block reduces
+// one (group, channel) in a fixed order, so a repeat launch gives the same
+// bits.
+//
+// Bound: 113.4 MFLOP per sample forward against 128 KB of input, so both
+// kernels are bound by operations. This first version is direct SIMT work
+// (no tensor cores), one kernel per stage with every plane in device memory:
+// a conv stage writes the pre-BN plane, a reduction takes the moments, and an
+// elementwise stage normalises, applies the affine and the relu.
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+namespace dtr {
+
+constexpr int C0 = 256, C1 = 128, C2 = 64;   // channels: x, after conv1/conv2, after conv3/conv4
+constexpr int T0 = 128, T1 = 256, T2 = 512;  // time steps: x, after the first up2, after the second
+constexpr int STAT_C = 128;                  // moments are padded to 128 channels per layer
+constexpr int CO_T = 64;                     // output channels per block
+constexpr int T_T = 64;                      // output time steps per block
+constexpr int CI_T = 16;                     // input channels staged per step
+constexpr int THREADS = 256;
+constexpr float EPS = 1e-5f;
+
+// The ctypes wrapper passes one host array of device pointers in this order
+// (ops/kernels/decoder_train.py PTR_NAMES).
+enum Ptr {
+  X,
+  W1, B1, G1, O1, W2, B2, G2, O2, W3, B3, G3, O3, W4, B4, G4, O4, W5, B5,
+  P_A1, P_H1, P_A2, P_H2, P_A3, P_H3, P_A4, P_H4, OUT, MEAN, VAR,
+  DOUT, DX,
+  GW1, GB1, GG1, GO1, GW2, GB2, GG2, GO2, GW3, GB3, GG3, GO3, GW4, GB4, GG4, GO4, GW5, GB5,
+  NPTR
+};
+
+__device__ __forceinline__ float ld(const float* p) { return *p; }
+__device__ __forceinline__ float ld(const __nv_bfloat16* p) { return __bfloat162float(*p); }
+__device__ __forceinline__ void st(float* p, float v) { *p = v; }
+__device__ __forceinline__ void st(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
+
+template <typename S> __device__ __forceinline__ float round_s(float v);
+template <> __device__ __forceinline__ float round_s<float>(float v) { return v; }
+template <> __device__ __forceinline__ float round_s<__nv_bfloat16>(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+// A [G, nb, C, T] tensor in any order of its first three dimensions, time
+// contiguous: the row of sample n = g*nb + b and channel c.
+template <typename TI>
+struct View {
+  const TI* p;
+  long long sG, sB, sC;
+  int nb;
+  __device__ __forceinline__ const TI* row(int n, int c) const {
+    return p + (n / nb) * sG + (n % nb) * sB + c * sC;
+  }
+};
+
+// [G*nb, C, T]
+template <typename TI>
+View<TI> planes(const void* p, int nb, int C, int T) {
+  return View<TI>{static_cast<const TI*>(p), (long long)nb * C * T, (long long)C * T, T, nb};
+}
+
+// [G, C, nb*T], the layout of x and dx
+template <typename TI>
+View<TI> grouped(const void* p, int nb, int C, int T) {
+  return View<TI>{static_cast<const TI*>(p), (long long)C * nb * T, T, (long long)nb * T, nb};
+}
+
+// up2(round_s(x[0..th)))[t]
+template <typename S, typename TI>
+__device__ __forceinline__ float up2_at(const TI* x, int t, int th) {
+  const int k = t >> 1;
+  const float xc = round_s<S>(ld(x + k));
+  if (t & 1)
+    return __fadd_rn(__fmul_rn(0.75f, xc), __fmul_rn(0.25f, round_s<S>(ld(x + min(k + 1, th - 1)))));
+  return __fadd_rn(__fmul_rn(0.25f, round_s<S>(ld(x + max(k - 1, 0)))), __fmul_rn(0.75f, xc));
+}
+
+// The conv input at (sample n, channel c, position t), 0 <= t < T.
+template <typename S, typename TI, int UP>
+__device__ __forceinline__ float conv_input(const View<TI>& in, int n, int c, int t, int T) {
+  if (UP) return up2_at<S, TI>(in.row(n, c), t, T / 2);
+  return round_s<S>(ld(in.row(n, c) + t));
+}
+
+// out[n, o, t] = bias[o] + sum over (i, k) of W(k, o, i) * input(n, i, t + k - 1),
+// input = up2(round_s(in)) (UP) or round_s(in), zero outside [0, T);
+// W(k, o, i) = w[k*wsK + o*wsO + i*wsI] (strides may be negative: a data
+// gradient reads the forward weights transposed and flipped). bias may be null.
+// grid: (samples, T / T_T, Cout / CO_T); out is [samples, Cout, T] float.
+template <typename S, typename TI, int UP>
+__global__ void __launch_bounds__(THREADS)
+conv3_kernel(View<TI> in, const S* __restrict__ w, long long wsK, long long wsO, long long wsI,
+             const float* __restrict__ bias, float* __restrict__ out, int Cin, int Cout, int T) {
+  __shared__ float xs[CI_T][T_T + 2];
+  __shared__ float ws[3][CI_T][CO_T];
+
+  const int n = blockIdx.x;
+  const int t0 = blockIdx.y * T_T;
+  const int co0 = blockIdx.z * CO_T;
+  const int tid = threadIdx.x;
+  const int tx = tid % 16, ty = tid / 16;
+
+  float acc[4][4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[j][i] = 0.f;
+
+  for (int ci0 = 0; ci0 < Cin; ci0 += CI_T) {
+    __syncthreads();  // the previous step's tiles are consumed
+    for (int e = tid; e < CI_T * (T_T + 2); e += THREADS) {
+      const int ci = e / (T_T + 2), s = e % (T_T + 2);
+      const int c = ci0 + ci, t = t0 + s - 1;
+      float v = 0.f;
+      if (c < Cin && t >= 0 && t < T) v = conv_input<S, TI, UP>(in, n, c, t, T);
+      xs[ci][s] = v;
+    }
+    for (int e = tid; e < 3 * CI_T * CO_T; e += THREADS) {
+      const int ci = e % CI_T, co = (e / CI_T) % CO_T, k = e / (CI_T * CO_T);
+      float v = 0.f;
+      if (co0 + co < Cout && ci0 + ci < Cin) v = ld(w + k * wsK + (co0 + co) * wsO + (ci0 + ci) * wsI);
+      ws[k][ci][co] = v;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int ci = 0; ci < CI_T; ++ci) {
+#pragma unroll
+      for (int k = 0; k < 3; ++k) {
+        float xv[4], wv[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) xv[i] = xs[ci][tx + 16 * i + k];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) wv[j] = ws[k][ci][ty + 16 * j];
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) acc[j][i] = fmaf(wv[j], xv[i], acc[j][i]);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int co = co0 + ty + 16 * j;
+    if (co >= Cout) continue;
+    const float b = bias != nullptr ? bias[co] : 0.f;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int t = t0 + tx + 16 * i;
+      if (t < T) out[((size_t)n * Cout + co) * T + t] = acc[j][i] + b;
+    }
+  }
+}
+
+// Fixed-order tree sum of the block's partials in shared memory (blockDim.x
+// a power of two, at most 256).
+__device__ __forceinline__ float block_sum(float v, float* red) {
+  __syncthreads();  // red may still be read from a previous sum
+  red[threadIdx.x] = v;
+  __syncthreads();
+  for (int s = blockDim.x / 2; s > 0; s >>= 1) {
+    if ((int)threadIdx.x < s) red[threadIdx.x] += red[threadIdx.x + s];
+    __syncthreads();
+  }
+  return red[0];
+}
+
+// Moments of a [G*nb, C, T] over each group's (sample, time): mean and
+// biased variance, written at mean[g*stat_sG + c] / var[...]. grid: (C, G).
+__global__ void bn_stats_kernel(const float* __restrict__ a, float* __restrict__ mean,
+                                float* __restrict__ var, int nb, int C, int T, int stat_sG) {
+  __shared__ float red[256];
+  const int c = blockIdx.x, g = blockIdx.y;
+  const int n = nb * T;
+  const float* base = a + ((size_t)g * nb * C + c) * T;
+  float s = 0.f;
+  for (int e = threadIdx.x; e < n; e += blockDim.x) s += base[(size_t)(e / T) * C * T + e % T];
+  const float m = block_sum(s, red) / n;
+  float q = 0.f;
+  for (int e = threadIdx.x; e < n; e += blockDim.x) {
+    const float d = base[(size_t)(e / T) * C * T + e % T] - m;
+    q = fmaf(d, d, q);
+  }
+  const float v = block_sum(q, red) / n;
+  if (threadIdx.x == 0) {
+    mean[g * stat_sG + c] = m;
+    var[g * stat_sG + c] = v;
+  }
+}
+
+__device__ __forceinline__ float bn_inv(float var) { return 1.0f / sqrtf(var + EPS); }
+
+// h = relu(xhat * gamma + beta), xhat = (a - mean) * inv, stored as TO
+// (rounded when TO is bf16). Elementwise over [G*nb, C, T].
+template <typename TO>
+__global__ void bn_relu_kernel(const float* __restrict__ a, const float* __restrict__ mean,
+                               const float* __restrict__ var, const float* __restrict__ gamma,
+                               const float* __restrict__ beta, TO* __restrict__ h, long long total,
+                               int nb, int C, int T, int stat_sG) {
+  const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= total) return;
+  const int c = (int)((e / T) % C);
+  const int g = (int)(e / ((long long)nb * C * T));
+  const float xhat = (a[e] - mean[g * stat_sG + c]) * bn_inv(var[g * stat_sG + c]);
+  st(h + e, fmaxf(xhat * gamma[c] + beta[c], 0.f));
+}
+
+// conv5 (Cout = 1) on round_s(h4) + sigmoid(x / 3). grid: (samples, T / blockDim.x).
+template <typename S>
+__global__ void conv5_sigmoid_kernel(const float* __restrict__ h4, const S* __restrict__ w,
+                                     const float* __restrict__ b5, float* __restrict__ out, int T) {
+  __shared__ float ws[3][C2];
+  const int n = blockIdx.x;
+  const int t = blockIdx.y * blockDim.x + threadIdx.x;
+  for (int e = threadIdx.x; e < 3 * C2; e += blockDim.x) ws[e / C2][e % C2] = ld(w + e);
+  __syncthreads();
+  if (t >= T) return;
+  const float* x = h4 + (size_t)n * C2 * T;
+  float acc = 0.f;
+  for (int c = 0; c < C2; ++c) {
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      const int tt = t + k - 1;
+      if (tt >= 0 && tt < T) acc = fmaf(ws[k][c], round_s<S>(x[(size_t)c * T + tt]), acc);
+    }
+  }
+  const float v = (acc + b5[0]) / 3.0f;
+  out[(size_t)n * T + t] = 1.0f / (1.0f + expf(-v));
+}
+
+inline int blocks_for(long long n, int per) { return (int)((n + per - 1) / per); }
+
+#define DTR_TRY(expr)                                  \
+  do {                                                 \
+    cudaError_t _e = (expr);                           \
+    if (_e != cudaSuccess) return (int)_e;             \
+  } while (0)
+
+// A forward conv with tap-major weights w [3, Cout, Cin] over `in`.
+template <typename S, typename TI, int UP>
+cudaError_t launch_conv(const View<TI>& in, const void* w, const void* bias, void* out, int N,
+                        int Cin, int Cout, int T, cudaStream_t st) {
+  conv3_kernel<S, TI, UP><<<dim3(N, T / T_T, Cout / CO_T), dim3(THREADS), 0, st>>>(
+      in, static_cast<const S*>(w), (long long)Cout * Cin, (long long)Cin, 1LL,
+      static_cast<const float*>(bias), static_cast<float*>(out), Cin, Cout, T);
+  return cudaGetLastError();
+}
+
+// Moments of layer `layer` (0..3) of plane a, then h = relu(bn(a)) as TO.
+template <typename TO>
+int bn_layer(void* const* P, int layer, const void* a, const void* gamma, const void* beta, void* h,
+             int G, int nb, int C, int T, cudaStream_t st) {
+  float* mean = static_cast<float*>(P[MEAN]) + layer * STAT_C;
+  float* var = static_cast<float*>(P[VAR]) + layer * STAT_C;
+  const int sG = 4 * STAT_C;
+  bn_stats_kernel<<<dim3(C, G), dim3(256), 0, st>>>(static_cast<const float*>(a), mean, var, nb, C, T, sG);
+  DTR_TRY(cudaGetLastError());
+  const long long total = (long long)G * nb * C * T;
+  bn_relu_kernel<TO><<<dim3(blocks_for(total, 256)), dim3(256), 0, st>>>(
+      static_cast<const float*>(a), mean, var, static_cast<const float*>(gamma),
+      static_cast<const float*>(beta), static_cast<TO*>(h), total, nb, C, T, sG);
+  return (int)cudaGetLastError();
+}
+
+#define DTR_RC(expr)                   \
+  do {                                 \
+    int _rc = (expr);                  \
+    if (_rc != 0) return _rc;          \
+  } while (0)
+
+// The forward chain: fills P_A1..P_H4, OUT, and the used channels of MEAN
+// and VAR [G, 4, 128] (the wrapper zero-fills the padding).
+template <typename S>
+int forward_chain(void* const* P, int G, int nb, cudaStream_t st) {
+  const int N = G * nb;
+  DTR_TRY((launch_conv<S, S, 1>(grouped<S>(P[X], nb, C0, T0), P[W1], P[B1], P[P_A1], N, C0, C1, T1, st)));
+  DTR_RC(bn_layer<S>(P, 0, P[P_A1], P[G1], P[O1], P[P_H1], G, nb, C1, T1, st));
+  DTR_TRY((launch_conv<S, S, 0>(planes<S>(P[P_H1], nb, C1, T1), P[W2], P[B2], P[P_A2], N, C1, C1, T1, st)));
+  DTR_RC(bn_layer<S>(P, 1, P[P_A2], P[G2], P[O2], P[P_H2], G, nb, C1, T1, st));
+  DTR_TRY((launch_conv<S, S, 1>(planes<S>(P[P_H2], nb, C1, T1), P[W3], P[B3], P[P_A3], N, C1, C2, T2, st)));
+  DTR_RC(bn_layer<S>(P, 2, P[P_A3], P[G3], P[O3], P[P_H3], G, nb, C2, T2, st));
+  DTR_TRY((launch_conv<S, S, 0>(planes<S>(P[P_H3], nb, C2, T2), P[W4], P[B4], P[P_A4], N, C2, C2, T2, st)));
+  DTR_RC(bn_layer<float>(P, 3, P[P_A4], P[G4], P[O4], P[P_H4], G, nb, C2, T2, st));
+  conv5_sigmoid_kernel<S><<<dim3(N, T2 / 128), dim3(128), 0, st>>>(
+      static_cast<const float*>(P[P_H4]), static_cast<const S*>(P[W5]), static_cast<const float*>(P[B5]),
+      static_cast<float*>(P[OUT]), T2);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace dtr

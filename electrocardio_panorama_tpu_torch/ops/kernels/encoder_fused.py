@@ -25,7 +25,7 @@ step). Values round to it where the TPU kernel rounds them (after each relu
 and block output, the dropout and gate products, the roi_align midpoint and
 output, the convT products), every product and sum is float32, and in the
 backward a gradient rounds to it only as a product's operand. The plain
-version rounds at the same points (`_Round`, and `_GradRound` for the
+version rounds at the same points (`Round`, and `GradRound` for the
 backward operands).
 
 Dropout masks are pre-scaled inputs (0 or 1/0.8) in the model layout,
@@ -55,6 +55,7 @@ from electrocardio_panorama_tpu_torch.ops.convs import (
     max_pool1d,
 )
 from electrocardio_panorama_tpu_torch.ops.kernels import build
+from electrocardio_panorama_tpu_torch.ops.kernels.rounding import GradRound, Round
 from electrocardio_panorama_tpu_torch.ops.roi import roi_align_ramp
 from electrocardio_panorama_tpu_torch.ops.theta import angular_encode
 
@@ -131,33 +132,6 @@ def draw_masks(generator: torch.Generator, B: int, L: int, dtype=torch.float32):
 
 
 # ------------------------------------------------------------- plain version
-class _Round(torch.autograd.Function):
-    """Round to `dtype` in the forward (the value stays float32); the
-    gradient passes through."""
-
-    @staticmethod
-    def forward(ctx, x, dtype):
-        return x.to(dtype).to(x.dtype)
-
-    @staticmethod
-    def backward(ctx, g):
-        return g, None
-
-
-class _GradRound(torch.autograd.Function):
-    """The identity in the forward; rounds the gradient to `dtype`: a
-    gradient that enters a product as an operand."""
-
-    @staticmethod
-    def forward(ctx, x, dtype):
-        ctx.dtype = dtype
-        return x.clone()
-
-    @staticmethod
-    def backward(ctx, g):
-        return g.to(ctx.dtype).to(g.dtype), None
-
-
 def encoder_plain(w: dict, x, gate, ramp, masks=None, *, lead_num: int, planes: dict | None = None):
     """The kernels' function in eager PyTorch: z1 [B, 128L, 128] and the z2
     grid [B, 896L, 32] in x's dtype. `w` maps torch keys to weights, gate is
@@ -172,10 +146,10 @@ def encoder_plain(w: dict, x, gate, ramp, masks=None, *, lead_num: int, planes: 
     C, G7 = FEAT * L, SEGS * L
 
     def R(t):
-        return _Round.apply(t, sd) if mixed else t
+        return Round.apply(t, sd) if mixed else t
 
     def G(t):
-        return _GradRound.apply(t, sd) if mixed else t
+        return GradRound.apply(t, sd) if mixed else t
 
     def f(k):
         return w[WEIGHT_KEYS[k]].float()

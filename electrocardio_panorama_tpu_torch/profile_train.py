@@ -1,11 +1,13 @@
 """Where the train step's time goes on the card.
 
     python -m electrocardio_panorama_tpu_torch.profile_train [--steps 8] [--batch-size 32]
+        [--train-decoder xla|fused]
 
 Builds a synthetic corpus in a temporary directory and runs the Nef-Net
 train step (training/solver.py) from a seeded init in float32 and bfloat16,
-each with the fused encoder (kernels A2/A3) and with the eager one. For each
-it prints one JSON line with
+each with the fused encoder (kernels A2/A3) and with the eager one, with the
+eager grouped decode or, under `--train-decoder fused`, the fused train
+decoder (kernels A4f/A4b). For each it prints one JSON line with
   * the host-clock split of a step by layer (the loader assembling the
     batch, inputs to the device and the dropout masks, encode forward,
     decode forward + loss, decode backward, encode backward, optimizer),
@@ -68,7 +70,8 @@ def split_step(solver: Solver, params, bn_state, opt, batch, step: int, clock):
         if solver.mixed:
             data, it, tt = (t.to(solver.compute_dtype) for t in (data, it, tt))
         (out, sp, sl), new_bn = solver.model.apply(p, bn_state, data, it, tt, rois, phase="train", masks=masks,
-                                                   shuffle_idx=(step % 3, (step + 1) % 3), encode_fn=encode)
+                                                   shuffle_idx=(step % 3, (step + 1) % 3), encode_fn=encode,
+                                                   train_decode_fn=solver._train_dec_fn)
         if solver.mixed:
             out, sp, sl = (t.float() for t in (out, sp, sl))
             new_bn = cast_floats_f32(new_bn)
@@ -122,7 +125,8 @@ def profile(cfg, steps: int, device) -> dict:
 
     win = device_window(run_all, steps)
     return {
-        "dtype": cfg.TPU.compute_dtype, "train_encoder": solver.train_encoder, "batch": cfg.DATA.batch_size,
+        "dtype": cfg.TPU.compute_dtype, "train_encoder": solver.train_encoder,
+        "train_decoder": solver.train_decoder, "batch": cfg.DATA.batch_size,
         "steps": steps,
         "host_ms_per_step_synced": {"loader_batch": loader_ms, **{k: 1e3 * v / steps for k, v in split.items()}},
         "step_ms_unsynced": step_ms,
@@ -138,6 +142,8 @@ def main(argv=None) -> None:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--steps", type=int, default=8)
     p.add_argument("--batch-size", type=int, default=32)
+    p.add_argument("--train-decoder", default="xla", choices=["xla", "fused"],
+                   help="TPU.train_decoder: the eager grouped decode, or kernels A4f/A4b")
     p.add_argument("--device", default=None)
     args = p.parse_args(argv)
     device = resolve_device(args.device)
@@ -150,7 +156,7 @@ def main(argv=None) -> None:
                     "output_dir", f"{tmp}/out", "DATA.synthetic_root", f"{tmp}/synth",
                     "DATA.synthetic_n_train", str(args.batch_size * args.steps), "DATA.synthetic_n_test", "8",
                     "DATA.batch_size", str(args.batch_size), "TPU.compute_dtype", dtype,
-                    "TPU.train_encoder", enc])
+                    "TPU.train_encoder", enc, "TPU.train_decoder", args.train_decoder])
                 rec = profile(cfg, args.steps, device)
                 rec["card"] = card
                 print(json.dumps(rec), flush=True)

@@ -11,6 +11,9 @@ the caller names it.
   * the encoder of the train step is the fused pair A2/A3 under
     TPU.train_encoder ('auto' picks it on CUDA with bfloat16 compute on
     model_nefnet, as the JAX package picks its Pallas pair on a TPU);
+  * the three grouped decodes of the train step go through the fused pair
+    A4f/A4b under TPU.train_decoder 'fused' ('xla', the default, is the eager
+    grouped decode; there is no 'auto', as in the JAX package);
   * dropout masks come from a per-step torch.Generator seeded from
     (seed, epoch, step), and the standin shuffle indices from a per-epoch
     numpy stream, so a resume at an epoch reproduces both streams, and the
@@ -32,6 +35,7 @@ import torch
 
 from electrocardio_panorama_tpu_torch.models import build_loss, build_model
 from electrocardio_panorama_tpu_torch.ops import angular_encode, full_f32
+from electrocardio_panorama_tpu_torch.ops.kernels.decoder_train import make_train_decode_fn
 from electrocardio_panorama_tpu_torch.ops.kernels.encoder_fused import draw_masks, make_fused_encode_fn
 from electrocardio_panorama_tpu_torch.training import metrics as M
 from electrocardio_panorama_tpu_torch.training.checkpoint import CheckPointer
@@ -84,12 +88,8 @@ def check_ported_knobs(cfg) -> None:
                                   "open items (orbax); use 'pickle'")
     if backend != "pickle":
         raise ValueError(f"unknown TPU.checkpoint_backend {backend!r} (use 'pickle' or 'orbax')")
-    dec = cfg.TPU.train_decoder
-    if dec == "fused":
-        raise NotImplementedError("TPU.train_decoder='fused' (kernels A4f/A4b) is not ported yet: "
-                                  "ROADMAP.md Queue B; use 'xla'")
-    if dec != "xla":
-        raise ValueError(f"unknown TPU.train_decoder {dec!r} (use 'xla' or 'fused')")
+    if cfg.TPU.train_decoder not in ("xla", "fused"):
+        raise ValueError(f"unknown TPU.train_decoder {cfg.TPU.train_decoder!r} (use 'xla' or 'fused')")
 
 
 class Solver:
@@ -112,6 +112,11 @@ class Solver:
         self._train_enc_fn = (make_fused_encode_fn(cfg.DATA.lead_num, cfg.MODEL.theta_L,
                                                    ckpt=cfg.TPU.encoder_ckpt)
                               if self.train_encoder == "fused" else None)
+        # TPU.train_decoder 'fused': the grouped decodes through A4f/A4b, in
+        # the compute dtype (on a CPU tensor the pair's plain version)
+        self.train_decoder = cfg.TPU.train_decoder
+        self._train_dec_fn = (make_train_decode_fn(self.compute_dtype)
+                              if self.train_decoder == "fused" else None)
         self.eval_decoder = self._eval_decoder_mode()
         self._eval_enc_fn = self._eval_encode_fn()
         # per epoch: train losses [steps, 4], host-clock times, scalars
@@ -193,7 +198,7 @@ class Solver:
                 data, it, tt = (t.to(self.compute_dtype) for t in (data, it, tt))
             (out, sp, sl), new_bn = self.model.apply(
                 p, bn_state, data, it, tt, rois, phase="train", masks=masks, shuffle_idx=(i1, i2),
-                encode_fn=self._train_enc_fn)
+                encode_fn=self._train_enc_fn, train_decode_fn=self._train_dec_fn)
             if self.mixed:
                 out, sp, sl = (t.float() for t in (out, sp, sl))
                 new_bn = cast_floats_f32(new_bn)

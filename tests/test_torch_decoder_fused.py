@@ -1,5 +1,6 @@
-"""Streamed-basis decoder (kernel A1): the port's plain version against the
-JAX package's Pallas kernel in interpret mode, on the CPU.
+"""Fused eval decoder (kernel A1, the streamed-basis form, and the gate-input
+and y1 forms A5/A7 and A6): the port's plain versions against the JAX
+package's Pallas kernels in interpret mode, on the CPU.
 
 Tolerances:
   * f32, head 'stream_scalar': atol 2e-5, the JAX package's own bar for the
@@ -9,7 +10,18 @@ Tolerances:
     kernel's polyphase weight combinations, rounded to bf16 once), and
     corr > 0.999 / atol 1e-4 against the f32 decode_views, the bar of
     tests/test_pallas_decoder.py:111-133;
-  * the CUDA kernel against the plain version (card only): the same bars.
+  * the gate form (`gates=`): f32 atol 2e-5 against the JAX polyphase kernel
+    A5 and, separately, against the JAX float32 layout-A kernel A7 (reached
+    by setting the module global `_F32_LAYOUT_A` and calling the function
+    un-jitted, so that the jit cache cannot hand back A5's trace); bf16 atol
+    1e-4 against the JAX bf16 A5 result (the TPU kernel's polyphase conv1
+    rounds one more intermediate, so the two are about as far apart as each
+    is from float32) and corr > 0.999 / atol 1e-4 against the f32
+    decode_views, the bar of tests/test_pallas_decoder.py:38-60;
+  * the y1 form (`enc=`, head 'y1'): f32 atol 2e-5 and bf16 atol 5e-5 against
+    the JAX kernel A6, as for A1;
+  * every form of the port against its eager `decode_views`: f32 atol 2e-5;
+  * the CUDA kernels against the plain versions (card only): the same bars.
 """
 
 import numpy as np
@@ -20,10 +32,11 @@ import torch
 
 from electrocardio_panorama_tpu.models import NefNetDef as JaxNefNetDef
 from electrocardio_panorama_tpu.models.nefnet import decode_views as jax_decode_views
+from electrocardio_panorama_tpu.models.nefnet import query_gates as jax_query_gates
 from electrocardio_panorama_tpu.ops.pallas import decoder_fused as jf
 from electrocardio_panorama_tpu.ops.theta import angular_encode as jax_angular_encode
 from electrocardio_panorama_tpu_torch.convert import params_from_jax
-from electrocardio_panorama_tpu_torch.models import decode_views
+from electrocardio_panorama_tpu_torch.models import decode_views, query_gates
 from electrocardio_panorama_tpu_torch.ops import angular_encode
 from electrocardio_panorama_tpu_torch.ops.kernels import decoder_fused as tf
 
@@ -121,6 +134,158 @@ def test_decode_basis_cpu_dispatch_and_checks(rng):
         tf.decode_basis(U.to(torch.bfloat16), ep, folded)
     with pytest.raises(ValueError, match="v_tile"):
         tf.fused_decode_views(folded, latent, enc=enc, v_tile=0)
+
+
+@pytest.fixture(scope="module")
+def gate_case():
+    """Non-trivial BN stats; V=11 is not a multiple of the tile."""
+    rng = np.random.default_rng(11)
+    params, state, tp, ts = weights(0, rng)
+    latent = (rng.standard_normal((2, 256, 128)) * 0.3).astype(np.float32)
+    views = rng.uniform(-np.pi, np.pi, (2, 11, 2)).astype(np.float32)
+    return params, state, tp, ts, latent, views
+
+
+def test_plain_gates_f32_matches_jax_a5(gate_case):
+    params, state, tp, ts, latent, views = gate_case
+    gates = jax_query_gates(params, jnp.asarray(views))
+    ref = np.asarray(jf.fused_decode_views(jf.fold_decoder_bn(params, state), jnp.asarray(latent), gates,
+                                           v_tile=8, interpret=True))
+    ours = tf.fused_decode_views(tf.fold_decoder_bn(tp, ts), torch.tensor(latent),
+                                 query_gates(tp, torch.tensor(views)), v_tile=8)
+    assert ours.shape == (2, 11, 512) and ours.dtype == torch.float32
+    np.testing.assert_allclose(ours.numpy(), ref, atol=2e-5)
+
+
+def test_plain_gates_f32_matches_jax_a7(gate_case, monkeypatch):
+    """The float32 instantiation of the port's gate path is also the
+    counterpart of the JAX package's float32 layout-A kernel."""
+    params, state, tp, ts, latent, views = gate_case
+    monkeypatch.setattr(jf, "_F32_LAYOUT_A", True)
+    gates = jax_query_gates(params, jnp.asarray(views))
+    ref = np.asarray(jf.fused_decode_views.__wrapped__(
+        jf.fold_decoder_bn(params, state), jnp.asarray(latent), gates, v_tile=8, interpret=True))
+    monkeypatch.undo()
+    other = np.asarray(jf.fused_decode_views(jf.fold_decoder_bn(params, state), jnp.asarray(latent), gates,
+                                             v_tile=8, interpret=True))
+    assert not np.array_equal(ref, other)  # two kernels, not one trace twice
+    ours = tf.fused_decode_views(tf.fold_decoder_bn(tp, ts), torch.tensor(latent),
+                                 query_gates(tp, torch.tensor(views)), v_tile=8)
+    np.testing.assert_allclose(ours.numpy(), ref, atol=2e-5)
+
+
+def test_plain_gates_bf16_matches_jax_a5(rng):
+    params, state, tp, ts = weights(2)
+    latent = realistic_latent(rng, params)
+    views = rng.uniform(-np.pi, np.pi, (2, 16, 2)).astype(np.float32)
+    jax_bf16 = np.asarray(jf.fused_decode_views(
+        jf.fold_decoder_bn(params, state, dtype=jnp.bfloat16), jnp.asarray(latent),
+        jax_query_gates(params, jnp.asarray(views)), v_tile=16, interpret=True))
+    f32 = np.asarray(jax_decode_views(params, state, jnp.asarray(latent), jnp.asarray(views)))
+    ours = tf.fused_decode_views(tf.fold_decoder_bn(tp, ts, dtype=torch.bfloat16), torch.tensor(latent),
+                                 query_gates(tp, torch.tensor(views)), v_tile=16).numpy()
+    assert ours.dtype == np.float32
+    np.testing.assert_allclose(ours, jax_bf16, atol=1e-4)
+    corr = np.corrcoef(ours.ravel(), f32.ravel())[0, 1]
+    assert corr > 0.999, f"bf16/f32 correlation {corr}"
+    np.testing.assert_allclose(ours, f32, atol=1e-4)
+
+
+@pytest.mark.parametrize("dtype,v_tile,atol", [("float32", 8, 2e-5), ("bfloat16", 16, 5e-5)])
+def test_plain_y1_matches_jax_a6(gate_case, dtype, v_tile, atol):
+    params, state, tp, ts, latent, views = gate_case
+    ref = np.asarray(jf.fused_decode_views(
+        jf.fold_decoder_bn(params, state, dtype=jnp.dtype(dtype)), jnp.asarray(latent),
+        enc=jax_angular_encode(jnp.asarray(views), 1), v_tile=v_tile, interpret=True, head="y1"))
+    folded = tf.fold_decoder_bn(tp, ts, dtype=getattr(torch, dtype))
+    enc = angular_encode(torch.tensor(views))
+    ours = tf.fused_decode_views(folded, torch.tensor(latent), enc=enc, v_tile=v_tile, head="y1")
+    assert ours.shape == (2, 11, 512) and ours.dtype == torch.float32
+    np.testing.assert_allclose(ours.numpy(), ref, atol=atol)
+    y1 = tf.basis_y1(folded, torch.tensor(latent), enc)
+    assert y1.shape == (2, 11, 128, 256) and y1.dtype == getattr(torch, dtype) and float(y1.min()) >= 0
+
+
+def test_all_forms_agree_with_decode_views(gate_case):
+    _, _, tp, ts, latent, views = gate_case
+    lat, v = torch.tensor(latent), torch.tensor(views)
+    ref = decode_views(tp, ts, lat, v)
+    folded = tf.fold_decoder_bn(tp, ts)
+    enc, gates = angular_encode(v), query_gates(tp, v)
+    launches = sum(tf.LAUNCHES.values())
+    outs = {"gates": tf.fused_decode_views(folded, lat, gates, v_tile=8),
+            "gates_plain": tf.fused_decode_views(folded, lat, gates, v_tile=8, plain=True),
+            **{h: tf.fused_decode_views(folded, lat, enc=enc, v_tile=8, head=h)
+               for h in ("auto", "stream", "stream_scalar", "y1")}}
+    assert sum(tf.LAUNCHES.values()) == launches  # the CPU never counts a kernel launch
+    for name, out in outs.items():
+        assert out.shape == (2, 11, 512), name
+        np.testing.assert_allclose(out.numpy(), ref.numpy(), atol=2e-5, err_msg=name)
+    torch.testing.assert_close(outs["stream"], outs["auto"], rtol=0, atol=0)
+    torch.testing.assert_close(outs["stream_scalar"], outs["auto"], rtol=0, atol=0)
+    # V a multiple of the tile and V not: the padded views change nothing
+    whole = tf.fused_decode_views(folded, lat, gates[:, :8], v_tile=8)
+    np.testing.assert_allclose(whole.numpy(), outs["gates"][:, :8].numpy(), atol=1e-6)
+    whole = tf.fused_decode_views(folded, lat, enc=enc[:, :8], v_tile=8, head="y1")
+    np.testing.assert_allclose(whole.numpy(), outs["y1"][:, :8].numpy(), atol=1e-6)
+
+
+def test_fused_decode_views_argument_errors(gate_case):
+    """The argument rules of the JAX function (tests/test_pallas_decoder.py:136-154)."""
+    _, _, tp, ts, latent, views = gate_case
+    lat, v = torch.tensor(latent), torch.tensor(views)
+    folded = tf.fold_decoder_bn(tp, ts)
+    enc, gates = angular_encode(v), query_gates(tp, v)
+    with pytest.raises(ValueError, match="exactly one"):
+        tf.fused_decode_views(folded, lat, gates, enc=enc)
+    with pytest.raises(ValueError, match="exactly one"):
+        tf.fused_decode_views(folded, lat)
+    stripped = {k: t for k, t in folded.items() if k != "A"}
+    with pytest.raises(ValueError, match="mlp2"):
+        tf.fused_decode_views(stripped, lat, enc=enc, v_tile=8)
+    assert tf.fused_decode_views(stripped, lat, gates, v_tile=8).shape == (2, 11, 512)  # gates need no A
+    with pytest.raises(ValueError, match="unknown basis head"):
+        tf.fused_decode_views(folded, lat, enc=enc, head="dense")
+    with pytest.raises(ValueError, match="v_tile"):
+        tf.fused_decode_views(folded, lat, gates, v_tile=-8)
+    with pytest.raises(ValueError, match="CUDA"):
+        tf.decode_gates_cuda(lat, gates, folded)
+    with pytest.raises(ValueError, match="CUDA"):
+        tf.decode_y1_cuda(tf.basis_y1(folded, lat, enc), folded)
+    with pytest.raises(ValueError, match="latent must be"):
+        tf.decode_gates(lat.to(torch.bfloat16), gates, folded)
+    with pytest.raises(ValueError, match="gates must be"):
+        tf.decode_gates(lat, gates[..., :100], folded)
+    with pytest.raises(ValueError, match="y1 must be"):
+        tf.decode_y1(tf.basis_y1(folded, lat, enc).to(torch.bfloat16), folded)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("form", ["gates", "y1"])
+def test_cuda_forms_match_plain(rng, dtype, form):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    dev = torch.device("cuda")
+    _, _, tp, ts = weights(0, rng)
+    tp = {k: v.to(dev) for k, v in tp.items()}
+    ts = {k: v.to(dev) for k, v in ts.items()}
+    latent = torch.tensor((rng.standard_normal((4, 256, 128)) * 0.3).astype(np.float32), device=dev)
+    views = torch.tensor(rng.uniform(-np.pi, np.pi, (4, 11, 2)).astype(np.float32), device=dev)
+    kw = {"gates": query_gates(tp, views)} if form == "gates" else {"enc": angular_encode(views), "head": "y1"}
+    ref = tf.fused_decode_views(tf.fold_decoder_bn(tp, ts), latent, plain=True, **kw)
+    folded = tf.fold_decoder_bn(tp, ts, dtype=getattr(torch, dtype))
+    before = tf.LAUNCHES[f"{form}_{dtype}"]
+    out = tf.fused_decode_views(folded, latent, **kw)
+    torch.cuda.synchronize()
+    assert tf.LAUNCHES[f"{form}_{dtype}"] == before + 1
+    assert out.shape == (4, 11, 512)
+    err = float((out - ref).abs().max())
+    if dtype == "float32":
+        assert err <= 2e-5
+    else:
+        corr = np.corrcoef(out.cpu().numpy().ravel(), ref.cpu().numpy().ravel())[0, 1]
+        assert err <= 1e-4 and corr > 0.999
 
 
 @pytest.mark.cuda

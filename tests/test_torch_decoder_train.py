@@ -1,0 +1,243 @@
+"""Fused train decoder (kernels A4f/A4b): the port's plain version against the
+JAX package's Pallas kernel pair in interpret mode, on the CPU, at a
+per-group batch of 2 (3 groups, full width).
+
+Tolerances:
+  * float32 forward: out atol 3e-6, the running-stat updates rtol 1e-5 /
+    atol 1e-6 (the bars of tests/test_pallas_train_decoder.py:40-44);
+  * float32 gradients of sum|out - 0.4| with respect to x and every decoder
+    parameter, against the JAX kernel pair's custom VJP: rtol 2e-4 / atol 2e-5
+    (test_pallas_train_decoder.py:63-67). The conv biases that sit right
+    before a train-mode BN get rounding noise on both sides (the batch mean
+    cancels them) and are held to be tiny instead;
+  * bfloat16: corr > 0.999 against the float32 reference, as the JAX
+    package's own test has it, and atol 2e-3 on the output (running-stat
+    updates rtol 1e-3 / atol 1e-4) against the JAX bfloat16 interpret
+    result. The two round at the same points except the TPU kernel's
+    upsample matmuls, which round one more intermediate, so they sit about
+    as far from each other (9.5e-4 here) as each sits from float32 (1.2e-3,
+    1.0e-3): a bf16 ulp of a pre-sigmoid value near 1 is 2^-8, and up to a
+    twelfth of it reaches the output;
+  * the plain version against the port's eager grouped decode
+    (`decoder_apply(train=True, bn_groups=3)`): out atol 1e-6, updates atol
+    1e-6, gradients rtol 1e-4 / atol 1e-5 (same arithmetic, other order);
+  * the CUDA kernels against the plain version (card only).
+"""
+
+import numpy as np
+import pytest
+import jax
+import jax.numpy as jnp
+import torch
+
+from electrocardio_panorama_tpu.models.nefnet import init_nefnet as jax_init_nefnet
+from electrocardio_panorama_tpu.ops.pallas import decoder_train as jt
+from electrocardio_panorama_tpu_torch.convert import params_from_jax
+from electrocardio_panorama_tpu_torch.models import decoder_apply
+from electrocardio_panorama_tpu_torch.ops.convs import group_batch_norm1d
+from electrocardio_panorama_tpu_torch.ops.kernels import decoder_train as dt
+
+NB = 2  # per-group batch
+# conv biases right before a train-mode BN: their gradient is rounding noise
+BN_CANCELLED = tuple(f"decoder.{i}.double_conv.{j}.bias" for i in (1, 3) for j in (0, 3))
+
+
+@pytest.fixture(scope="module")
+def setup():
+    params, state = jax_init_nefnet(jax.random.PRNGKey(0), lead_num=3)
+    rng = np.random.default_rng(5)
+    # non-trivial BN affines and running statistics
+    params = {k: (v + jnp.asarray(rng.normal(0, 0.2, v.shape).astype(np.float32))
+                  if ".double_conv.1." in k or ".double_conv.4." in k else v) for k, v in params.items()}
+    state = {k: (v + 0.3 if v.dtype != np.int32 else v) for k, v in state.items()}
+    stacked = rng.normal(0, 0.5, (3 * NB, 256, 128)).astype(np.float32)
+    tp, ts = params_from_jax({k: np.asarray(v) for k, v in params.items()},
+                             {k: np.asarray(v) for k, v in state.items()})
+    return params, state, stacked, tp, ts
+
+
+def decoder_keys(params):
+    return [k for k in params if k.startswith("decoder.")]
+
+
+def port_loss_and_grads(fn, tp, ts, stacked):
+    p = {k: v.clone().requires_grad_(True) for k, v in tp.items()}
+    x = torch.tensor(stacked, requires_grad=True)
+    out, updates = fn(p, ts, x)
+    (out - 0.4).abs().sum().backward()
+    return out.detach(), updates, x.grad, {k: p[k].grad for k in decoder_keys(p)}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_pack_train_weights_matches_jax(setup, dtype):
+    params, _, _, tp, _ = setup
+    ref = jt.pack_train_weights(params, dtype=jnp.dtype(dtype))
+    ours = dt.pack_train_weights(tp, dtype=getattr(torch, dtype))
+    assert list(ours) != [] and set(ours) == set(ref) == set(dt.WNAMES)
+    for k in ref:
+        assert str(ours[k].dtype).removeprefix("torch.") == str(ref[k].dtype), k
+        np.testing.assert_array_equal(ours[k].float().numpy(), np.asarray(ref[k], np.float32), err_msg=k)
+
+
+def test_chain_running_stats_matches_jax_and_group_bn(setup):
+    _, state, _, _, ts = setup
+    rng = np.random.default_rng(7)
+    mean = rng.normal(0, 1, (3, 4, 128)).astype(np.float32)
+    var = rng.uniform(0.5, 2, (3, 4, 128)).astype(np.float32)
+    ref = jt.chain_running_stats(state, jnp.asarray(mean), jnp.asarray(var), NB)
+    ours = dt.chain_running_stats(ts, torch.tensor(mean), torch.tensor(var), NB)
+    assert set(ours) == set(ref) and len(ours) == 12
+    for k in ref:
+        np.testing.assert_allclose(ours[k].numpy(), np.asarray(ref[k]), rtol=1e-6, atol=1e-7, err_msg=k)
+    # and the port's grouped BN on a plane with exactly these group moments
+    key, (c, t) = dt.BN_KEYS[2], dt.BN_SHAPES[2]
+    x = torch.tensor(rng.normal(0, 1, (3 * NB, c, t)).astype(np.float32))
+    xg = x.reshape(3, NB, c, t)
+    m, v = xg.mean(dim=(1, 3)), xg.var(dim=(1, 3), unbiased=False)
+    pad = torch.zeros(3, 4, 128)
+    mean_t, var_t = pad.clone(), pad.clone()
+    mean_t[:, 2, :c], var_t[:, 2, :c] = m, v
+    _, new_mean, new_var = group_batch_norm1d(x, torch.ones(c), torch.zeros(c), ts[f"{key}.running_mean"],
+                                              ts[f"{key}.running_var"], groups=3)
+    ours = dt.chain_running_stats(ts, mean_t, var_t, NB)
+    torch.testing.assert_close(ours[f"{key}.running_mean"], new_mean, rtol=1e-6, atol=1e-7)
+    torch.testing.assert_close(ours[f"{key}.running_var"], new_var, rtol=1e-6, atol=1e-7)
+
+
+def test_forward_and_stats_match_jax_kernel(setup):
+    params, state, stacked, tp, ts = setup
+    ref_out, ref_u = jt.make_train_decode_fn(interpret=True)(params, state, jnp.asarray(stacked))
+    with torch.no_grad():
+        out, u = dt.make_train_decode_fn()(tp, ts, torch.tensor(stacked))
+    assert out.shape == (3, NB, 1, 512) and out.dtype == torch.float32
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref_out), atol=3e-6)
+    assert set(u) == set(ref_u)
+    for k in ref_u:
+        np.testing.assert_allclose(u[k].numpy(), np.asarray(ref_u[k]), rtol=1e-5, atol=1e-6, err_msg=k)
+        if k.endswith("num_batches_tracked"):
+            assert int(u[k]) == int(np.asarray(state[k])) + 3
+
+
+def test_gradients_match_jax_kernel_pair(setup):
+    """Against the JAX custom VJP (the recomputing backward kernel in
+    interpret mode), not the XLA grouped decode."""
+    params, state, stacked, tp, ts = setup
+    fn = jt.make_train_decode_fn(interpret=True)
+
+    def loss(p, x):
+        out, _ = fn(p, state, x)
+        return jnp.sum(jnp.abs(out - 0.4))
+
+    gx_ref, gp_ref = jax.grad(loss, argnums=(1, 0))(params, jnp.asarray(stacked))
+    _, _, gx, gp = port_loss_and_grads(dt.make_train_decode_fn(), tp, ts, stacked)
+    np.testing.assert_allclose(gx.numpy(), np.asarray(gx_ref), rtol=2e-4, atol=2e-5)
+    assert len(gp) == 18
+    for k, g in gp.items():
+        if k in BN_CANCELLED:
+            assert float(g.abs().max()) < 1e-4 and float(np.abs(np.asarray(gp_ref[k])).max()) < 1e-4, k
+            continue
+        np.testing.assert_allclose(g.numpy(), np.asarray(gp_ref[k]), rtol=2e-4, atol=2e-5, err_msg=k)
+
+
+def test_bf16_storage_matches_jax_bf16_and_correlates(setup):
+    params, state, stacked, tp, ts = setup
+    ref32, _ = jt.make_train_decode_fn(interpret=True)(params, state, jnp.asarray(stacked))
+    p16 = {k: v.astype(jnp.bfloat16) for k, v in params.items()}
+    ref16, ref_u = jt.make_train_decode_fn(compute_dtype=jnp.bfloat16, interpret=True)(
+        p16, state, jnp.asarray(stacked).astype(jnp.bfloat16))
+    t16 = {k: v.to(torch.bfloat16) for k, v in tp.items()}
+    with torch.no_grad():
+        out, u = dt.make_train_decode_fn(torch.bfloat16)(t16, ts, torch.tensor(stacked).to(torch.bfloat16))
+    assert out.dtype == torch.float32
+    a = out.numpy().astype(np.float64).ravel()
+    corr = np.corrcoef(a, np.asarray(ref32, np.float64).ravel())[0, 1]
+    assert corr > 0.999, corr
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref16, np.float32), atol=2e-3)
+    for k in ref_u:  # float32 state in, float32 updates out
+        assert u[k].dtype in (torch.float32, torch.int64), k
+        np.testing.assert_allclose(u[k].numpy(), np.asarray(ref_u[k], np.float32), rtol=1e-3, atol=1e-4, err_msg=k)
+
+
+def test_plain_matches_port_eager_grouped_decode(setup):
+    _, _, stacked, tp, ts = setup
+
+    def eager(p, s, x):
+        o, u = decoder_apply(p, s, x, train=True, bn_groups=3)
+        return torch.sigmoid(o / 3.0).reshape(3, NB, 1, 512), u
+
+    ref_out, ref_u, ref_gx, ref_gp = port_loss_and_grads(eager, tp, ts, stacked)
+    out, u, gx, gp = port_loss_and_grads(dt.make_train_decode_fn(), tp, ts, stacked)
+    torch.testing.assert_close(out, ref_out, rtol=0, atol=1e-6)
+    assert set(u) == set(ref_u)
+    for k in ref_u:
+        torch.testing.assert_close(u[k].float(), ref_u[k].float(), rtol=1e-6, atol=1e-6, msg=k)
+    torch.testing.assert_close(gx, ref_gx, rtol=1e-4, atol=1e-5)
+    for k in ref_gp:
+        if k in BN_CANCELLED:
+            assert float(gp[k].abs().max()) < 1e-4, k
+            continue
+        torch.testing.assert_close(gp[k], ref_gp[k], rtol=1e-4, atol=1e-5, msg=k)
+
+
+def test_cpu_dispatch_and_checks(setup):
+    _, _, stacked, tp, _ = setup
+    w = dt.pack_train_weights(tp)
+    x = torch.tensor(stacked).reshape(3, NB, 256, 128).permute(0, 2, 1, 3).reshape(3, 256, NB * 128)
+    launches = sum(dt.LAUNCHES.values())
+    out, mean, var = dt.train_decode_groups(w, x)
+    assert sum(dt.LAUNCHES.values()) == launches  # the CPU never counts a kernel launch
+    assert out.shape == (3, NB, 512) and mean.shape == var.shape == (3, 4, 128)
+    assert not mean.requires_grad and not var.requires_grad
+    assert float(mean[:, 2:, 64:].abs().max()) == 0 and float(var[:, 2:, 64:].abs().max()) == 0
+    with pytest.raises(ValueError, match="CUDA"):
+        dt.forward_cuda(w, x)
+    with pytest.raises(ValueError, match="CUDA"):
+        dt.backward_cuda(w, x, torch.zeros(3, NB, 512))
+    with pytest.raises(ValueError, match="x must be"):
+        dt.train_decode_groups(w, x[:, :, :100])
+    with pytest.raises(ValueError, match="w\\['w1'\\]"):
+        dt.train_decode_groups(w, x.to(torch.bfloat16))
+    with pytest.raises(ValueError, match="storage dtype"):
+        dt.train_decode_groups(w, x.double())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_kernels_match_plain(setup, dtype):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    from electrocardio_panorama_tpu_torch.ops import full_f32
+
+    _, _, stacked, tp, _ = setup
+    dev, sd = torch.device("cuda"), getattr(torch, dtype)
+    w = {k: v.to(dev) for k, v in dt.pack_train_weights(tp, dtype=sd).items()}
+    x0 = (torch.tensor(stacked).reshape(3, NB, 256, 128).permute(0, 2, 1, 3).reshape(3, 256, NB * 128)
+          .to(dev, sd))
+    dout = torch.tensor(np.random.default_rng(1).normal(0, 1, (3, NB, 512)).astype(np.float32), device=dev)
+
+    def run(plain):
+        ws = {k: v.clone().requires_grad_(True) for k, v in w.items()}
+        x = x0.clone().requires_grad_(True)
+        with full_f32():
+            out, mean, var = dt.train_decode_groups(ws, x, plain=plain)
+            out.backward(dout)
+        return out.detach(), mean, var, {"x": x.grad, **{k: v.grad for k, v in ws.items()}}
+
+    before = dict(dt.LAUNCHES)
+    ref, got = run(True), run(False)
+    torch.cuda.synchronize()
+    assert dt.LAUNCHES[f"fwd_{dtype}"] == before.get(f"fwd_{dtype}", 0) + 1
+    assert dt.LAUNCHES[f"bwd_{dtype}"] == before.get(f"bwd_{dtype}", 0) + 1
+    f32 = dtype == "float32"
+    torch.testing.assert_close(got[0], ref[0], rtol=0, atol=2e-5 if f32 else 2e-3)
+    for a, b in ((got[1], ref[1]), (got[2], ref[2])):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+    for k, b in ref[3].items():
+        a, b = got[3][k].float(), b.float()
+        if k in ("b1", "b2", "b3", "b4"):
+            assert float(a.abs().max()) < 1e-3, k
+            continue
+        # a relu mask that flips at a pre-activation within rounding of 0 moves
+        # a whole term of a per-channel sum, so the bar is on the energy
+        l2 = float((a - b).norm() / b.norm().clamp_min(1e-12))
+        assert l2 <= (5e-3 if f32 else 5e-2), f"{k}: L2 relative {l2:.2e}"

@@ -53,7 +53,9 @@ def run_clean(code: str, cwd=REPO):
 
 def test_importing_every_port_module_loads_no_jax():
     mods = port_modules()
-    assert len(mods) >= 25 and f"{port.__name__}.ops.kernels.decoder_fused" in mods
+    assert len(mods) >= 25
+    for kernel_module in ("decoder_fused", "decoder_train", "encoder_fused", "build"):
+        assert f"{port.__name__}.ops.kernels.{kernel_module}" in mods
     code = (f"import importlib, sys, json\nfor m in {mods!r}: importlib.import_module(m)\n"
             "print(json.dumps(sorted(k for k in sys.modules if k.split('.')[0] in "
             f"{FORBIDDEN!r})))")

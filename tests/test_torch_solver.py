@@ -1,8 +1,9 @@
 """The port's Solver and entry points on the CPU, on a tiny synthetic corpus
 (B=4, 3 leads, two steps per epoch): train two epochs, resume, validate;
 the run lock, the empty-epoch warning, the NaN guard, the explicit-resume
-check, best tracking across resume, the knobs that raise; and the on-device
-PSNR/SSIM against the JAX package's.
+check, best tracking across resume, the knobs that raise; a step with the
+fused train decoder against the eager one; and the on-device PSNR/SSIM
+against the JAX package's.
 """
 
 import json
@@ -158,7 +159,8 @@ def test_explicit_resume_path_must_exist(base_cfg, tmp_path):
 @pytest.mark.parametrize("key,value,err", [
     ("mesh_shape", [2], NotImplementedError),
     ("checkpoint_backend", "orbax", NotImplementedError),
-    ("train_decoder", "fused", NotImplementedError),
+    ("train_decoder", "pallas", ValueError),
+    ("train_decoder", "auto", ValueError),
     ("checkpoint_backend", "npz", ValueError),
     ("train_encoder", "pallas", ValueError),
     ("eval_decoder", "fast", ValueError),
@@ -182,10 +184,56 @@ def test_knob_resolution(base_cfg, tmp_path):
     c.TPU.train_encoder, c.TPU.eval_encoder, c.TPU.eval_decoder = "fused", "fused", "fused_bf16"
     s = S.Solver(c, use_writer=False, device="cpu")
     assert (s.train_encoder, s.eval_decoder) == ("fused", "fused_bf16") and s._eval_enc_fn is not None
+    assert s.train_decoder == "xla" and s._train_dec_fn is None  # 'fused' is explicit: there is no 'auto'
     c.MODEL.model = "modelv2"
     with pytest.raises(ValueError):
         S.Solver(c, use_writer=False, device="cpu")
     assert S.step_seed(1, 2, 3) == S.step_seed(1, 2, 3) != S.step_seed(1, 2, 4)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_train_step_fused_decoder_matches_xla(base_cfg, tmp_path, dtype):
+    """TPU.train_decoder 'fused' (the pair's plain version on the CPU): one
+    Solver step from the same init on the same batch equals the 'xla' step.
+    float32: losses rtol 1e-4, params rtol 2e-4 / atol 2e-6, BN state rtol
+    1e-4 / atol 1e-5 (the bars of tests/test_pallas_train_decoder.py:126-132).
+    bfloat16: the eager path rounds after every op, the fused one only at
+    the kernel's points, so losses rtol 2e-2 and the update of every
+    parameter correlates at > 0.98 (biases before a train-mode BN, whose
+    gradient is noise, left out)."""
+    c = base_cfg.clone()
+    c.output_dir = str(tmp_path)
+    c.TPU.compute_dtype = dtype
+    dl, _ = loaders(c)
+    batch = next(iter(dl))
+    results = {}
+    for dec in ("xla", "fused"):
+        c.TPU.train_decoder = dec
+        s = S.Solver(c, use_writer=False, device="cpu")
+        assert s.train_decoder == dec and (s._train_dec_fn is not None) == (dec == "fused")
+        params, bn, opt = s.init_state()
+        p0 = {k: v.detach().clone() for k, v in params.items()}
+        bn, lvec = s.train_step(params, bn, opt, epoch=0, step=0, i1=1, i2=2, batch=batch)
+        results[dec] = ({k: v.detach() for k, v in params.items()}, bn, lvec)
+    (px, bx, lx), (pf, bf, lf) = results["xla"], results["fused"]
+    assert set(bf) == set(bx)
+    if dtype == "float32":
+        torch.testing.assert_close(lf, lx, rtol=1e-4, atol=1e-6)
+        for k in px:
+            torch.testing.assert_close(pf[k], px[k], rtol=2e-4, atol=2e-6, msg=k)
+        for k in bx:
+            torch.testing.assert_close(bf[k].float(), bx[k].float(), rtol=1e-4, atol=1e-5, msg=k)
+        return
+    torch.testing.assert_close(lf, lx, rtol=2e-2, atol=1e-4)
+    assert all(v.dtype == torch.float32 for k, v in bf.items() if "num_batches" not in k)
+    for k in bx:
+        torch.testing.assert_close(bf[k].float(), bx[k].float(), rtol=2e-2, atol=2e-3, msg=k)
+    cancelled = tuple(f"decoder.{i}.double_conv.{j}.bias" for i in (1, 3) for j in (0, 3))
+    for k in px:
+        a, b = (pf[k] - p0[k]).flatten().numpy(), (px[k] - p0[k]).flatten().numpy()
+        if k in cancelled or np.abs(b).max() == 0 or a.size == 1:
+            continue
+        assert np.corrcoef(a, b)[0, 1] > 0.98, k
 
 
 def test_eval_step_fused_encoder_and_decoder_match_eager(base_cfg, tmp_path):

@@ -8,7 +8,11 @@ phase='train', the loss tuple, value_and_grad, optax update), with an
 interpret mode, so nothing in the JAX package changes. The port's step runs
 `Solver.train_step` with its mask draw replaced by the same masks, through
 the fused encoder's plain version (TPU.train_encoder 'fused' on the CPU) and
-through the eager encoder ('xla').
+through the eager encoder ('xla'). With TPU.train_decoder 'fused' both sides
+decode through their fused train decoder: the JAX step through its Pallas
+kernel pair in interpret mode (`make_train_decode_fn(interpret=True)`, what
+the JAX Solver builds on the CPU), the port's through the pair's plain
+version, held to the float32 tolerances below.
 
 Tolerances, float32: the loss tuple rtol 1e-5; the BN running statistics
 atol 1e-5; each parameter's update (new minus old) by the bulk (99.5% of
@@ -39,6 +43,7 @@ from electrocardio_panorama_tpu.models.nefnet import NefNetLatents as JaxLatents
 from electrocardio_panorama_tpu.ops import angular_encode as jax_angular_encode
 from electrocardio_panorama_tpu.ops import linear as jax_linear
 from electrocardio_panorama_tpu.ops import roi_reverse_1d as jax_roi_reverse_1d
+from electrocardio_panorama_tpu.ops.pallas import decoder_train as DT
 from electrocardio_panorama_tpu.ops.pallas import encoder_fused as EF
 from electrocardio_panorama_tpu.ops.roi import roi_align_ramp as jax_roi_align_ramp
 from electrocardio_panorama_tpu.training.optim import get_optimizer as jax_get_optimizer
@@ -98,12 +103,13 @@ def setup():
     return params, state, batch, masks_k
 
 
-def jax_grads(params, state, batch, masks_k, dtype):
+def jax_grads(params, state, batch, masks_k, dtype, train_decoder="xla"):
     """(loss tuple, grads, new BN state) of the JAX train step's loss_fn."""
     cfg = configure(jax_get_cfg(), "sgd")
     model = JaxNefNetDef(L)
     loss_fn_ = jax_build_loss(cfg)
     mixed = dtype != jnp.float32
+    tdf = DT.make_train_decode_fn(compute_dtype=dtype, interpret=True) if train_decoder == "fused" else None
 
     def encode_fn(p, x, input_thetas, rois, *, rng=None, train=False):
         gate1 = jax_linear(jax_angular_encode(input_thetas, 1), p["mlp1.weight"], p["mlp1.bias"])
@@ -123,7 +129,7 @@ def jax_grads(params, state, batch, masks_k, dtype):
             data, it, tt = jax_cast_floats((data, it, tt), dtype)
         (out, sp, sl), new_bn = model.apply(p, state, data, it, tt, rois, phase="train",
                                             rng=jax.random.PRNGKey(0), shuffle_idx=(I1, I2),
-                                            encode_fn=encode_fn)
+                                            encode_fn=encode_fn, train_decode_fn=tdf)
         if mixed:
             out, sp, sl = jax_cast_floats_f32((out, sp, sl))
             new_bn = jax_cast_floats_f32(new_bn)
@@ -143,9 +149,10 @@ def jax_update(params, grads, optim):
     return {k: np.asarray(v) for k, v in optax.apply_updates(params, updates).items()}, new_opt
 
 
-def port_step(params, state, batch, masks_k, optim, encoder, dtype, monkeypatch):
+def port_step(params, state, batch, masks_k, optim, encoder, dtype, monkeypatch, decoder="xla"):
     cfg = configure(get_cfg(), optim)
     cfg.TPU.train_encoder = encoder
+    cfg.TPU.train_decoder = decoder
     cfg.TPU.compute_dtype = dtype
     cfg.output_dir = "unused"
     tp, ts = params_from_jax({k: np.asarray(v) for k, v in params.items()},
@@ -154,7 +161,7 @@ def port_step(params, state, batch, masks_k, optim, encoder, dtype, monkeypatch)
     monkeypatch.setattr(S, "draw_masks", lambda gen, b, lead_num, dtype: masks)
     monkeypatch.setattr(S.os, "makedirs", lambda *a, **k: None)
     solver = S.Solver(cfg, use_writer=False, device="cpu")
-    assert solver.train_encoder == encoder
+    assert (solver.train_encoder, solver.train_decoder) == (encoder, decoder)
     p = {k: v.clone().requires_grad_(True) for k, v in tp.items()}
     opt = get_optimizer(cfg, p)
     new_bn, lvec = solver.train_step(p, ts, opt, epoch=0, step=0, i1=I1, i2=I2, batch=batch)
@@ -178,6 +185,20 @@ def update_close(a, b, key):
     assert l2_rel(a, b) <= 5e-4, f"{key}: update L2 rel err {l2_rel(a, b):.2e}"
 
 
+def update_close_or_one_channel(a, b, key):
+    """`update_close`, except that one element of a per-channel vector may sit
+    up to 2e-3 of the largest away: with both decoders fused, BatchNorm's
+    moments come from two formulas (the TPU kernel's E[a^2] - mean^2, the
+    port's two passes), a relu mask at a pre-activation within rounding of 0
+    may fall either way, and one flipped element moves one channel's sum by a
+    whole term, which a vector of 64 channels cannot hide in its 0.5%."""
+    d = np.abs(a - b) / max(np.abs(b).max(), 1e-20)
+    over = d > 2e-4
+    if a.ndim == 1 and over.sum() == 1 and d.max() <= 2e-3:
+        return
+    update_close(a, b, key)
+
+
 @pytest.fixture(scope="module")
 def jax_results(setup):
     params, state, batch, masks_k = setup
@@ -189,8 +210,23 @@ def jax_results(setup):
 @pytest.mark.parametrize("encoder", ["fused", "xla"])
 def test_train_step_f32_matches_jax(setup, jax_results, optim, encoder, monkeypatch):
     params, state, batch, masks_k = setup
-    jl, jp, jopt, jbn = jax_results[optim]
-    pl, pp, pbn, popt = port_step(params, state, batch, masks_k, optim, encoder, "float32", monkeypatch)
+    port = port_step(params, state, batch, masks_k, optim, encoder, "float32", monkeypatch)
+    check_f32_step(params, state, jax_results[optim], port, optim)
+
+
+def test_train_step_fused_decoder_matches_jax_fused_step(setup, monkeypatch):
+    """TPU.train_decoder 'fused' on both sides, fused encoder on both sides:
+    the same batch, weights, masks and shuffle indices."""
+    params, state, batch, masks_k = setup
+    lo, grads, new_bn = jax_grads(params, state, batch, masks_k, jnp.float32, train_decoder="fused")
+    port = port_step(params, state, batch, masks_k, "sgd", "fused", "float32", monkeypatch, decoder="fused")
+    check_f32_step(params, state, (lo, *jax_update(params, grads, "sgd"), new_bn), port, "sgd",
+                   update_close=update_close_or_one_channel)
+
+
+def check_f32_step(params, state, jax_result, port_result, optim, update_close=update_close):
+    jl, jp, jopt, jbn = jax_result
+    pl, pp, pbn, popt = port_result
     np.testing.assert_allclose(pl, jl, rtol=1e-5)
     assert len(pl) == 4 and pl[0] == pytest.approx(pl[1] + pl[2] + pl[3], rel=1e-6)
     p0 = {k: np.asarray(v) for k, v in params.items()}
