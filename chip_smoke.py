@@ -40,6 +40,7 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -295,6 +296,73 @@ def encoder_kernels(card: str, dev) -> dict:
                        f"{fby}), A3 {bwd_ms:.3f} ms/launch (plain {plain_bwd_ms:.3f} ms, bound {bb:.4f} ms "
                        f"{bby}) on {card}")
     return stats
+
+
+def stage_kernel_resources(report: str) -> list[str]:
+    """One line per eval-decoder stage kernel in a `ptxas -v` report: its
+    template arguments, registers and spills."""
+    lines, kernel, spills = [], None, ""
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '_ZN3dec\d(tc|fma)12stage_kernelI((?:L[ib]\d+E)+)E", line)
+        if "Compiling entry function" in line:
+            kernel = None
+        if m:
+            args = re.findall(r"L[ib](\d+)E", m.group(2))
+            names = ("CIN", "NOUT", "T", "TAPS", "IN", "OUT", "RELU", "NWG")
+            kernel = f"{m.group(1)} stage_kernel<{', '.join(f'{k}={v}' for k, v in zip(names, args))}>"
+        elif kernel and "spill stores" in line:
+            spills = line.strip()
+        elif kernel and (used := re.search(r"Used (\d+) registers", line)):
+            lines.append(f"{kernel}: {used.group(1)} registers; {spills}")
+    return lines
+
+
+# the convolution that one F.conv1d call runs as a stage's yardstick:
+# (input channels, output channels, steps); the stage does the same products
+# (the gate stage half of them: it takes them before the upsample)
+STAGE_CONV = {"gate+conv1": (256, 128, 256), "mix+conv2": (128, 128, 256), "up+conv2": (128, 128, 256),
+              "conv2": (128, 128, 256), "conv3": (128, 64, 512), "conv4+conv5": (64, 64, 512)}
+
+
+def decoder_stages(card: str, dev, params, latent, folded, rng) -> None:
+    """Every stage of the A1 and A5 kernel chains at B=32, V=336 in float32
+    and bfloat16: its time (CUDA events inside the call) and achieved
+    TFLOP/s, beside one F.conv1d call (cuDNN; float32 under full_f32) on a
+    tensor of the stage's shape. The port calls no such conv on a CUDA path:
+    it is a yardstick."""
+    import torch.nn.functional as F
+
+    from electrocardio_panorama_tpu_torch.models import query_gates
+    from electrocardio_panorama_tpu_torch.ops import angular_encode, full_f32
+    from electrocardio_panorama_tpu_torch.ops.kernels import decoder_fused as a1
+
+    n = B * V_MAIN
+    thetas = torch.tensor(rng.uniform(-np.pi, np.pi, (B, V_MAIN, 2)), dtype=torch.float32, device=dev)
+    with torch.no_grad(), full_f32():
+        gates = query_gates(params, thetas)
+        for dt, key in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+            log("kernels", f"stage blocks' dynamic shared memory, {key}: {a1.stage_smem_bytes(dt)} bytes")
+            inputs = {"basis": (a1.basis_planes(folded[dt], latent).to(dt),
+                                a1.basis_coeffs(angular_encode(thetas)).to(dt).float()),
+                      "gates": (latent.to(dt), gates)}
+            conv_ms = {}
+            for form, ins in inputs.items():
+                a1.decode_stage_ms(form, folded[dt], *ins)  # warm-up
+                ms = a1.decode_stage_ms(form, folded[dt], *ins)
+                for stage, macs in a1.STAGES[form]:
+                    if form == "gates" and stage in ("conv3", "conv4+conv5"):
+                        continue  # the basis form's stages, timed above
+                    cin, cout, steps = STAGE_CONV[stage]
+                    if (cin, cout, steps) not in conv_ms:
+                        x = torch.randn(n, cin, steps, dtype=dt, device=dev)
+                        w = torch.randn(cout, cin, 3, dtype=dt, device=dev)
+                        conv_ms[cin, cout, steps] = cuda_ms(lambda: F.conv1d(x, w, padding=1), reps=3)
+                        del x, w
+                    log("kernels", f"stage decoder_{form} {key} {stage}: {ms[stage]:.3f} ms = "
+                                   f"{2 * macs * n / ms[stage] * 1e-9:.1f} TFLOP/s | F.conv1d {cin}->{cout} k3 over "
+                                   f"{steps} steps (cuDNN, yardstick): {conv_ms[cin, cout, steps]:.3f} ms on {card}")
+            del inputs
+            torch.cuda.empty_cache()
 
 
 def check_views(name: str, out, ref32, same, dt, shape) -> tuple[bool, float, str]:
@@ -675,6 +743,8 @@ def main() -> int:
         for line in report.splitlines():
             if "spill" in line and " 0 bytes spill stores" not in line:
                 log("build", f"{name}: {line.strip()}")
+        for line in stage_kernel_resources(report):
+            log("build", f"{name}: {line}")
 
     # --------------------------------------------------------------- 3. kernels
     dev = torch.device("cuda")
@@ -723,6 +793,7 @@ def main() -> int:
                              f"plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by}) on {card}")
                 log("kernels", "ok " + line)
     form_stats = forms_kernels(card, dev, params, latent, folded, rng)
+    decoder_stages(card, dev, params, latent, folded, rng)
     del folded, latent
     torch.cuda.empty_cache()
     enc_stats = encoder_kernels(card, dev)

@@ -10,92 +10,82 @@
 //
 //   y1[v]  = relu(conv3(up2(gate[v] x latent[b]); w1) + b1)  [128, 256]
 //
-// then the shared chain of decoder_common.cuh (conv2 .. conv5, sigmoid).
-// conv1's stage forms gate x latent and the x2 upsample while it loads its
-// input (256 channels of 128 steps per beat), so only y1 goes to device
-// memory. In bfloat16, latent and gate are rounded before their product and
-// the product rounds again, as in the TPU kernel; the upsample and every sum
-// are float.
+// then the shared chain (conv2 .. conv5, sigmoid). As in the TPU kernel,
+// conv1's channel products are taken before the upsample, at 128 steps: the
+// gate stage forms gate x latent while it loads its input and writes the
+// three taps' products g_k = W1_k (gate x latent), and conv2's loader forms
+// y1 = relu(sum_k up2(g_k)[t + k - 1] + b1) from them, which halves conv1's
+// operations. In bfloat16, latent and gate are rounded before their product,
+// and the product and g_k round again; the upsample and every sum are float.
 //
 // decoder_y1 replaces ::_decoder_kernel_ppb: the shared chain on y1 planes
 // [B*V, 128, 256] that the caller mixed outside (basis_y1), the audit form
 // that splits the basis mix from the tail.
 //
-// Bound: 113.4 MFLOP per view (gates) and 63.1 MFLOP per view (y1) against
-// at most 128 KB of input per view, so both are bound by operations. Direct
-// SIMT stages with the planes in device memory, as decoder_basis.cu.
+// Bound: 113.4 MFLOP per view (gates, counted with conv1 at the high rate)
+// and 63.1 MFLOP per view (y1) against at most 128 KB of input per view, so
+// both are bound by operations. Four and three launches (decoder_chain.cuh);
+// in bfloat16 the products run on the tensor cores (decoder_tc.cuh), in
+// float32 as FMA (decoder_fma.cuh).
 
-#include "decoder_common.cuh"
+#include "decoder_chain.cuh"
 
 namespace {
 
 template <typename S>
-int launch_gates(const void* latent, const void* gates, const void* w1, const void* b1,
-                 const void* w2, const void* b2, const void* w3, const void* b3, const void* w4,
-                 const void* b4, const void* w5, const void* b5, void* y1, void* h2, void* h3,
-                 void* h4, void* out, int B, int V, void* stream_ptr) {
+int launch_gates(const void* latent, const void* gates, const void* w1, const void* b1, void* g,
+                 const dec::Tail& t, int B, int V, void* stage_ms, void* stream_ptr) {
   if (B <= 0 || V <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  const int N = B * V, C0 = 256, C1 = 128, T1 = 256;
-  dec::conv3_relu_kernel<S, dec::GATE>
-      <<<dim3(N, T1 / dec::T_T, C1 / dec::CO_T), dim3(dec::THREADS), 0, stream>>>(
-          static_cast<const S*>(latent), static_cast<const float*>(gates), nullptr, 0, V,
-          static_cast<const S*>(w1), static_cast<const float*>(b1), static_cast<S*>(y1), C0, C1, T1);
-  cudaError_t err = cudaGetLastError();
+  dec::StageTimer timer(static_cast<float*>(stage_ms), stream);
+  cudaError_t err = dec::launch_gate_stage<S>(latent, static_cast<const float*>(gates), w1, g, V, B * V, stream);
   if (err != cudaSuccess) return (int)err;
-  return (int)dec::launch_tail<S, dec::PLAIN>(y1, nullptr, nullptr, 0, 1, w2, b2, w3, b3, w4, b4, w5,
-                                              b5, h2, h3, h4, out, N, stream);
+  timer.mark();
+  return (int)dec::launch_tail<S, dec::IN_G3>(g, nullptr, static_cast<const float*>(b1), 0, 1, t, B * V, stream,
+                                              timer);
 }
 
 template <typename S>
-int launch_y1(const void* y1, const void* w2, const void* b2, const void* w3, const void* b3,
-              const void* w4, const void* b4, const void* w5, const void* b5, void* h2, void* h3,
-              void* h4, void* out, int N, void* stream_ptr) {
+int launch_y1(const void* y1, const dec::Tail& t, int N, void* stage_ms, void* stream_ptr) {
   if (N <= 0) return (int)cudaErrorInvalidValue;
-  return (int)dec::launch_tail<S, dec::PLAIN>(y1, nullptr, nullptr, 0, 1, w2, b2, w3, b3, w4, b4, w5,
-                                              b5, h2, h3, h4, out, N,
-                                              static_cast<cudaStream_t>(stream_ptr));
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  dec::StageTimer timer(static_cast<float*>(stage_ms), stream);
+  return (int)dec::launch_tail<S, dec::IN_Y1>(y1, nullptr, nullptr, 0, 1, t, N, stream, timer);
 }
 
 }  // namespace
 
 // Plain C interface (loaded with ctypes). Pointers are device pointers of
-// contiguous tensors: latent [B, 256, 128] S, gates [B*V, 256] f32 (already
-// rounded to S's values), w1 [3,128,256] S, w2 [3,128,128] S, w3 [3,64,128] S,
-// w4 [3,64,64] S, w5 [3,1,64] S, biases f32; y1 and h2 [B*V,128,256] S, h3 and
-// h4 [B*V,64,512] S (y1 an input of decoder_y1, scratch of decoder_gates; the
-// others scratch); out [B*V,512] f32. Returns 0 or the cudaError_t of the
-// first failed launch.
-extern "C" int decoder_gates_f32(const void* latent, const void* gates, const void* w1,
-                                 const void* b1, const void* w2, const void* b2, const void* w3,
-                                 const void* b3, const void* w4, const void* b4, const void* w5,
-                                 const void* b5, void* y1, void* h2, void* h3, void* h4, void* out,
-                                 int B, int V, void* stream) {
-  return launch_gates<float>(latent, gates, w1, b1, w2, b2, w3, b3, w4, b4, w5, b5, y1, h2, h3, h4,
-                             out, B, V, stream);
+// contiguous tensors in the wrapper's packed layouts: latent [B, 256, 128]
+// float, or [B, 32, 128, 8] bfloat16; gates [B*V, 256] f32 (already rounded to
+// S's values); w1 packed, b1 [128] f32; g [B*V, 3, 128, 128] elements of S,
+// scratch; y1 [B*V, 128, 256] S; the tail's weights, biases and scratch as in
+// dec::Tail; out [B*V, 512] f32. stage_ms: null, or a host array of 4 (gates)
+// or 3 (y1) floats that receives the stages' times (the call then waits for
+// the stream). Returns 0 or the cudaError_t of the first failed launch.
+
+extern "C" int decoder_gates_f32(const void* latent, const void* gates, const void* w1, const void* b1,
+                                 void* g, DEC_TAIL_PARAMS, int B, int V, void* stage_ms, void* stream) {
+  return launch_gates<float>(latent, gates, w1, b1, g, DEC_TAIL_VALUE, B, V, stage_ms, stream);
 }
 
-extern "C" int decoder_gates_bf16(const void* latent, const void* gates, const void* w1,
-                                  const void* b1, const void* w2, const void* b2, const void* w3,
-                                  const void* b3, const void* w4, const void* b4, const void* w5,
-                                  const void* b5, void* y1, void* h2, void* h3, void* h4, void* out,
-                                  int B, int V, void* stream) {
-  return launch_gates<__nv_bfloat16>(latent, gates, w1, b1, w2, b2, w3, b3, w4, b4, w5, b5, y1, h2,
-                                     h3, h4, out, B, V, stream);
+extern "C" int decoder_gates_bf16(const void* latent, const void* gates, const void* w1, const void* b1,
+                                  void* g, DEC_TAIL_PARAMS, int B, int V, void* stage_ms, void* stream) {
+  return launch_gates<__nv_bfloat16>(latent, gates, w1, b1, g, DEC_TAIL_VALUE, B, V, stage_ms, stream);
 }
 
-extern "C" int decoder_y1_f32(const void* y1, const void* w2, const void* b2, const void* w3,
-                              const void* b3, const void* w4, const void* b4, const void* w5,
-                              const void* b5, void* h2, void* h3, void* h4, void* out, int N,
-                              void* stream) {
-  return launch_y1<float>(y1, w2, b2, w3, b3, w4, b4, w5, b5, h2, h3, h4, out, N, stream);
+extern "C" int decoder_y1_f32(const void* y1, DEC_TAIL_PARAMS, int N, void* stage_ms, void* stream) {
+  return launch_y1<float>(y1, DEC_TAIL_VALUE, N, stage_ms, stream);
 }
 
-extern "C" int decoder_y1_bf16(const void* y1, const void* w2, const void* b2, const void* w3,
-                               const void* b3, const void* w4, const void* b4, const void* w5,
-                               const void* b5, void* h2, void* h3, void* h4, void* out, int N,
-                               void* stream) {
-  return launch_y1<__nv_bfloat16>(y1, w2, b2, w3, b3, w4, b4, w5, b5, h2, h3, h4, out, N, stream);
+extern "C" int decoder_y1_bf16(const void* y1, DEC_TAIL_PARAMS, int N, void* stage_ms, void* stream) {
+  return launch_y1<__nv_bfloat16>(y1, DEC_TAIL_VALUE, N, stage_ms, stream);
+}
+
+// dynamic shared memory in bytes of one block of a stage (0 the gate stage,
+// 1 conv2, 2 conv3, 3 conv4 + conv5), for reports; -1 for no such stage
+extern "C" int decoder_stage_smem_bytes(int bf16, int stage) {
+  return bf16 ? dec::stage_smem_bytes<__nv_bfloat16>(stage) : dec::stage_smem_bytes<float>(stage);
 }
 
 extern "C" const char* decoder_forms_error_string(int code) {

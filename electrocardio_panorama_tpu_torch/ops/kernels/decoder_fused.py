@@ -24,8 +24,7 @@ theta_L=1) and a per-view mix:
 (`csrc/decoder_basis.cu`) for CUDA tensors, the plain PyTorch version below
 for CPU tensors. A failed build or launch raises; nothing falls back.
 
-The two other forms are audit paths beside it (`csrc/decoder_forms.cu`, the
-stage kernels shared through `csrc/decoder_common.cuh`):
+The two other forms are audit paths beside it (`csrc/decoder_forms.cu`):
 
   * `decode_gates` takes the views' gates [B, V, 256] (`query_gates`) and runs
     the whole chain, gate x latent and conv1 included, per view. The JAX
@@ -38,14 +37,21 @@ stage kernels shared through `csrc/decoder_common.cuh`):
     the kernel in eager PyTorch and runs conv2 onwards: it splits A1's mix
     from A1's tail.
 
+All three run the same convolution stages (`csrc/decoder_common.cuh`): on the
+tensor cores in bfloat16 (`csrc/decoder_tc.cuh`), as float32 FMA otherwise
+(`csrc/decoder_fma.cuh`). As in the TPU kernels, the x2 upsample before conv3
+is folded into polyphase weights (`polyphase_matrices`), and the gate form
+takes conv1's channel products before its upsample. The kernels read packed
+layouts, which this module makes (`pack_chunked`, `pack_weights_tc`,
+`pack_weights_fma`, `pack_tail`): bfloat16 planes lie in channel chunks of 8,
+[C / 8, T, 8], so that a time step's 8 channels are one 16-byte row.
+
 Storage dtype: the folded weights' dtype. bfloat16 stores U, the weights and
 the activations in bf16, rounding where the TPU kernel rounds (U and the mix
 coefficients, y1, the conv2 and conv3 outputs, the conv4 output as conv5's
-operand; in the gate form the latent, the gate and their product); all
-products and sums are float32, and the output is float32. The TPU gate
-kernel's polyphase conv1 rounds one more intermediate that the time-order
-form does not have, so its bfloat16 agrees with the JAX package within a
-tolerance, not bitwise.
+operand; in the gate form the latent, the gate, their product and conv1's
+per-tap channel products); all products and sums are float32, and the output
+is float32. The plain versions round at the same places.
 """
 
 from __future__ import annotations
@@ -62,7 +68,8 @@ from electrocardio_panorama_tpu_torch.ops.resample import upsample_linear_x2
 
 FEAT = 128
 SEQ = 512
-MAX_BASIS = 32  # csrc/decoder_basis.cu MAXJ
+MAX_BASIS = 32  # csrc/decoder_common.cuh MAXJ
+CHUNK = 8  # channels per 16-byte row of a bfloat16 plane
 
 # launches of the CUDA kernels, counted where they are launched: A1 by storage
 # dtype ("float32" / "bfloat16"), the gate form "gates_<dtype>", the y1 form
@@ -122,17 +129,55 @@ def _conv(h, folded, i):
     return conv1d(h, folded[f"w{i}"].float().permute(1, 2, 0), folded[f"b{i}"], padding=1)
 
 
+def polyphase_matrices(folded: dict):
+    """The x2 upsample folded into conv3's weights (the JAX package's
+    `polyphase_matrices`): with h = h2 (zero outside [0, 256)),
+
+        h3[2k]   = A0 h[k-1] + A1 h[k] + A2 h[k+1]
+        h3[2k+1] = B0 h[k-1] + B1 h[k] + B2 h[k+1]
+
+    plus four edge corrections for the upsample's clamp: h3[0] += C0 h[0],
+    h3[1] += C1 h[0], h3[510] += C2 h[255], h3[511] += C3 h[255]. Returns
+    (ab3 [6, 64, 128] = A0..A2, B0..B2, c3 [4, 64, 128]) in the storage dtype:
+    the combinations are formed in float32 from the folded w3 and rounded once."""
+    w3 = folded["w3"].float()
+    ab3 = torch.stack([
+        0.75 * w3[0] + 0.25 * w3[1],
+        0.25 * w3[0] + 0.75 * w3[1] + 0.75 * w3[2],
+        0.25 * w3[2],
+        0.25 * w3[0],
+        0.75 * w3[0] + 0.75 * w3[1] + 0.25 * w3[2],
+        0.25 * w3[1] + 0.75 * w3[2],
+    ])
+    c3 = torch.stack([0.25 * (w3[1] - w3[0]), 0.25 * w3[0], 0.25 * w3[2], 0.25 * (w3[1] - w3[2])])
+    return ab3.to(folded["w3"].dtype), c3.to(folded["w3"].dtype)
+
+
+def _upconv3_plain(h2, folded) -> torch.Tensor:
+    """conv3 on up2(h2) in its polyphase form, before bias and ReLU:
+    h2 [N, 128, 256] f32 -> [N, 64, 512] f32."""
+    ab3, c3 = (m.float() for m in polyphase_matrices(folded))
+    even = F.conv1d(h2, ab3[:3].permute(1, 2, 0), padding=1)
+    odd = F.conv1d(h2, ab3[3:].permute(1, 2, 0), padding=1)
+    first, last = h2[:, :, 0], h2[:, :, -1]
+    even[:, :, 0] += first @ c3[0].t()
+    odd[:, :, 0] += first @ c3[1].t()
+    even[:, :, -1] += last @ c3[2].t()
+    odd[:, :, -1] += last @ c3[3].t()
+    return torch.stack([even, odd], dim=-1).reshape(h2.shape[0], 64, SEQ)
+
+
 def _tail_plain(y1, folded) -> torch.Tensor:
     """conv2 .. conv5 + sigmoid in eager PyTorch on y1 [N, 128, 256] (float32
-    values already rounded to the storage dtype) -> [N, 512] f32. Call inside
-    `full_f32()`."""
+    values already rounded to the storage dtype) -> [N, 512] f32, rounding
+    where the kernels round. Call inside `full_f32()`."""
     sd = folded["w2"].dtype
 
     def r(x):  # round to the storage dtype, compute on in float32
         return x.to(sd).float()
 
     h = r(torch.relu(_conv(y1, folded, 2)))
-    h = r(torch.relu(_conv(upsample_linear_x2(h), folded, 3)))
+    h = r(torch.relu(_upconv3_plain(h, folded) + folded["b3"][:, None]))
     h = r(torch.relu(_conv(h, folded, 4)))
     return torch.sigmoid(_conv(h, folded, 5) / 3.0).reshape(-1, SEQ)
 
@@ -171,16 +216,106 @@ def decode_y1_plain(y1, folded) -> torch.Tensor:
         return _tail_plain(y1.float().reshape(B * V, FEAT, 2 * FEAT), folded).reshape(B, V, SEQ)
 
 
+def _shift_sum_up2(g) -> torch.Tensor:
+    """sum_k up2(g[:, k])[t + k - 1] over the three taps k, zero outside
+    [0, 2T): g [N, 3, C, T] -> [N, C, 2T]. conv1 on the upsampled input, with
+    the channel product taken first at the low rate."""
+    up = F.pad(upsample_linear_x2(g.flatten(0, 1)).reshape(*g.shape[:3], -1), (1, 1))
+    n = up.shape[-1] - 2
+    return up[:, 0, :, 0:n] + up[:, 1, :, 1:n + 1] + up[:, 2, :, 2:n + 2]
+
+
 def decode_gates_plain(latent, gates, folded) -> torch.Tensor:
     """The gate kernel's function in eager PyTorch: latent [B, 256, 128] in
     the storage dtype, gates [B, V, 256] f32 -> [B, V, 512] f32. The gate
-    rounds to the storage dtype, and so does its product with the latent."""
+    rounds to the storage dtype, and so do its product with the latent and
+    conv1's three per-tap channel products, which are taken before the
+    upsample as in the TPU kernel."""
     sd = folded["w2"].dtype
     B, V = gates.shape[:2]
     with full_f32():
         x = (gates.to(sd)[..., None] * latent[:, None]).float().reshape(B * V, 2 * FEAT, FEAT)
-        y1 = torch.relu(_conv(upsample_linear_x2(x), folded, 1)).to(sd).float()
+        g = torch.einsum("kfc,nct->nkft", folded["w1"].float(), x).to(sd).float()
+        y1 = torch.relu(_shift_sum_up2(g) + folded["b1"][:, None]).to(sd).float()
         return _tail_plain(y1, folded).reshape(B, V, SEQ)
+
+
+def pack_chunked(x) -> torch.Tensor:
+    """[..., C, T] -> [..., C / 8, T, 8]: channel chunks of 8, the 8 channels
+    of one time step adjacent (element (c, t) at [c // 8, t, c % 8])."""
+    *lead, C, T = x.shape
+    return x.reshape(*lead, C // CHUNK, CHUNK, T).transpose(-1, -2).contiguous()
+
+
+def unpack_chunked(p) -> torch.Tensor:
+    """The inverse of `pack_chunked`: [..., C / 8, T, 8] -> [..., C, T]."""
+    *lead, K, T, _ = p.shape
+    return p.transpose(-1, -2).reshape(*lead, K * CHUNK, T)
+
+
+def pack_weights_tc(w) -> torch.Tensor:
+    """Tap-major weights [taps, N, Cin] -> [taps, Cin / 8, N, 8], the
+    tensor-core stages' K-major operand: 8 input channels of one output
+    channel are one 16-byte row (element (k, n, c) at [k, c // 8, n, c % 8])."""
+    taps, N, Cin = w.shape
+    return w.reshape(taps, N, Cin // CHUNK, CHUNK).permute(0, 2, 1, 3).contiguous()
+
+
+def pack_weights_fma(w) -> torch.Tensor:
+    """Tap-major weights [taps, N, Cin] -> [taps, Cin, N], the float32 stages'
+    operand (output channels adjacent)."""
+    return w.permute(0, 2, 1).contiguous()
+
+
+def polyphase_order(sd, device=None):
+    """(phase, co) of conv3's 128 packed output channels, as two index
+    tensors. bfloat16: chunks of 8 channels alternate between the phases
+    (n = 16 (co // 8) + 8 phase + co % 8), so a thread's channel pair stays
+    inside one row of the chunked h3. float32: n = 2 co + phase, so a thread's
+    8 packed channels are 8 adjacent output steps of 4 channels."""
+    n = torch.arange(2 * 64, device=device)
+    if sd == torch.bfloat16:
+        return (n // CHUNK) % 2, (n // (2 * CHUNK)) * CHUNK + n % CHUNK
+    return n % 2, n // 2
+
+
+def pack_tail(folded: dict) -> list[torch.Tensor]:
+    """conv2 .. conv5 as the kernels read them, in the order of the C entry
+    points: w2, b2, w3 (polyphase, 128 packed output channels), b3 (in the
+    packed order), the edge corrections [2, 128 n, 128 ci], w4, b4, w5
+    [3, 64], b5."""
+    sd = folded["w2"].dtype
+    pack = pack_weights_tc if sd == torch.bfloat16 else pack_weights_fma
+    ab3, c3 = polyphase_matrices(folded)
+    phase, co = polyphase_order(sd, ab3.device)
+    w3 = ab3.reshape(2, 3, 64, FEAT)[phase, :, co].transpose(0, 1)      # [3, 128 n, 128 ci]
+    cedge = c3.reshape(2, 2, 64, FEAT)[:, phase, co]                    # [2, 128 n, 128 ci]
+    return [pack(folded["w2"]), folded["b2"], pack(w3), folded["b3"][co].contiguous(), cedge.contiguous(),
+            pack(folded["w4"]), folded["b4"], folded["w5"][:, 0].contiguous(), folded["b5"]]
+
+
+_packed: collections.OrderedDict = collections.OrderedDict()
+
+
+def _cached(fn, tensors):
+    """fn(tensors), kept for the last few sets of (unchanged) tensors: the
+    weights are packed once, not at every launch. The entry holds its source
+    tensors, so their addresses are not reused while it lives."""
+    key = (fn.__name__, *((t.data_ptr(), t._version, t.dtype) for t in tensors))
+    if key not in _packed:
+        _packed[key] = (fn(tensors), tensors)
+        while len(_packed) > 8:
+            _packed.popitem(last=False)
+    _packed.move_to_end(key)
+    return _packed[key][0]
+
+
+def _pack_tail_list(tail):
+    return pack_tail(dict(zip(_TAIL_KEYS, tail)))
+
+
+def _pack_w1(w1):
+    return (pack_weights_tc if w1[0].dtype == torch.bfloat16 else pack_weights_fma)(w1[0])
 
 
 _SHAPES = {"w1": (3, 128, 256), "w2": (3, 128, 128), "w3": (3, 64, 128), "w4": (3, 64, 64), "w5": (3, 1, 64),
@@ -227,22 +362,26 @@ def _check_gates(latent, gates, folded):
 
 
 def _scratch(n: int, sd, dev):
-    """The tail's planes h2 [n, 128, 256], h3 and h4 [n, 64, 512], and out [n, 512]."""
+    """The tail's planes h2 [n, 128, 256] and h3 [n, 64, 512] (the kernels'
+    own layouts), and out [n, 512]."""
     return (torch.empty(n, FEAT, 2 * FEAT, dtype=sd, device=dev), torch.empty(n, 64, SEQ, dtype=sd, device=dev),
-            torch.empty(n, 64, SEQ, dtype=sd, device=dev), torch.empty(n, SEQ, dtype=torch.float32, device=dev))
+            torch.empty(n, SEQ, dtype=torch.float32, device=dev))
 
 
-def _call(lib_name: str, entry: str, sd, tensors, ints) -> None:
-    """Call `{entry}_{f32|bf16}(*pointers, *ints, stream)` of csrc/{lib_name}.cu
-    on the tensors' device and current stream; raise on a failed launch."""
+def _call(lib_name: str, entry: str, sd, tensors, ints, stage_ms=None) -> None:
+    """Call `{entry}_{f32|bf16}(*pointers, *ints, stage_ms, stream)` of
+    csrc/{lib_name}.cu on the tensors' device and current stream; raise on a
+    failed launch. `stage_ms`: a ctypes float array for the stages' times (the
+    call then waits for the stream), else None."""
     lib = build.load(lib_name)
     fn = getattr(lib, f"{entry}_{'bf16' if sd == torch.bfloat16 else 'f32'}")
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * len(tensors) + [ctypes.c_int] * len(ints) + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * len(tensors) + [ctypes.c_int] * len(ints) + [ctypes.c_void_p] * 2
     dev = tensors[0].device
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fn(*[t.data_ptr() for t in tensors], *ints, stream)
+        rc = fn(*[t.data_ptr() for t in tensors], *ints,
+                None if stage_ms is None else ctypes.cast(stage_ms, ctypes.c_void_p), stream)
     if rc != 0:
         err = getattr(lib, f"{lib_name}_error_string")
         err.restype = ctypes.c_char_p
@@ -250,11 +389,38 @@ def _call(lib_name: str, entry: str, sd, tensors, ints) -> None:
         raise RuntimeError(f"{entry} launch failed: {err(rc).decode()} (cudaError {rc})")
 
 
-def _launch(U, ep, b1, w2, b2, w3, b3, w4, b4, w5, b5) -> torch.Tensor:
+def _run_basis(U, ep, b1, tail, stage_ms=None) -> torch.Tensor:
+    """Kernel A1 on checked CUDA tensors; `tail` in _TAIL_KEYS order; [B*V, 512]."""
     B, V, J = ep.shape
-    h2, h3, h4, out = _scratch(B * V, w2.dtype, U.device)
-    args = [t.contiguous() for t in (U, ep, b1, w2, b2, w3, b3, w4, b4, w5, b5)]
-    _call("decoder_basis", "decoder_basis", w2.dtype, [*args, h2, h3, h4, out], [B, V, J])
+    sd = tail[0].dtype
+    if sd == torch.bfloat16:  # [B, 16, J, 256, 8]: a thread's loads over j are 16-byte rows
+        U = pack_chunked(U).transpose(1, 2)
+    h2, h3, out = _scratch(B * V, sd, U.device)
+    _call("decoder_basis", "decoder_basis", sd,
+          [U.contiguous(), ep.contiguous(), b1, *_cached(_pack_tail_list, tuple(tail)), h2, h3, out], [B, V, J],
+          stage_ms)
+    return out
+
+
+def _run_y1(y1, tail, stage_ms=None) -> torch.Tensor:
+    """Kernel A6 on checked CUDA tensors; [B*V, 512]."""
+    n = y1.shape[0] * y1.shape[1]
+    h2, h3, out = _scratch(n, y1.dtype, y1.device)
+    _call("decoder_forms", "decoder_y1", y1.dtype,
+          [y1.contiguous(), *_cached(_pack_tail_list, tuple(tail)), h2, h3, out], [n], stage_ms)
+    return out
+
+
+def _run_gates(latent, gates, head, stage_ms=None) -> torch.Tensor:
+    """Kernel A5 / A7 on checked CUDA tensors; `head` is (w1, b1, *tail); [B*V, 512]."""
+    B, V = gates.shape[:2]
+    sd, dev = latent.dtype, latent.device
+    g = torch.empty(B * V, 3, FEAT, FEAT, dtype=sd, device=dev)  # conv1's per-tap products
+    h2, h3, out = _scratch(B * V, sd, dev)
+    lat = pack_chunked(latent) if sd == torch.bfloat16 else latent.contiguous()
+    _call("decoder_forms", "decoder_gates", sd,
+          [lat, gates.to(sd).float().contiguous(), _cached(_pack_w1, (head[0],)), head[1], g,
+           *_cached(_pack_tail_list, tuple(head[2:])), h2, h3, out], [B, V], stage_ms)
     return out
 
 
@@ -262,30 +428,62 @@ def _launch(U, ep, b1, w2, b2, w3, b3, w4, b4, w5, b5) -> torch.Tensor:
 def _decoder_basis_op(U: torch.Tensor, ep: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
                       b2: torch.Tensor, w3: torch.Tensor, b3: torch.Tensor, w4: torch.Tensor,
                       b4: torch.Tensor, w5: torch.Tensor, b5: torch.Tensor) -> torch.Tensor:
-    return _launch(U, ep, b1, w2, b2, w3, b3, w4, b4, w5, b5)
+    """Kernel A1; returns [B*V, 512]."""
+    return _run_basis(U, ep, b1, (w2, b2, w3, b3, w4, b4, w5, b5))
 
 
 @torch.library.custom_op("ecgpan_torch::decoder_y1", mutates_args=())
 def _decoder_y1_op(y1: torch.Tensor, tail: list[torch.Tensor]) -> torch.Tensor:
     """Kernel A6. `tail` in _TAIL_KEYS order; returns [B*V, 512]."""
-    B, V = y1.shape[:2]
-    h2, h3, h4, out = _scratch(B * V, y1.dtype, y1.device)
-    args = [t.contiguous() for t in (y1, *tail)]
-    _call("decoder_forms", "decoder_y1", y1.dtype, [*args, h2, h3, h4, out], [B * V])
-    return out
+    return _run_y1(y1, tail)
 
 
 @torch.library.custom_op("ecgpan_torch::decoder_gates", mutates_args=())
 def _decoder_gates_op(latent: torch.Tensor, gates: torch.Tensor, head: list[torch.Tensor]) -> torch.Tensor:
     """Kernel A5 (and, in float32, A7). `head` is (w1, b1, *tail in
     _TAIL_KEYS order); returns [B*V, 512]."""
-    B, V = gates.shape[:2]
-    sd, dev = latent.dtype, latent.device
-    y1 = torch.empty(B * V, FEAT, 2 * FEAT, dtype=sd, device=dev)
-    h2, h3, h4, out = _scratch(B * V, sd, dev)
-    args = [t.contiguous() for t in (latent, gates.to(sd).float(), *head)]
-    _call("decoder_forms", "decoder_gates", sd, [*args, y1, h2, h3, h4, out], [B, V])
-    return out
+    return _run_gates(latent, gates, head)
+
+
+# the stages of each form, in launch order, with the multiply-adds per view
+# that each one's products take
+STAGES = {
+    "basis": (("mix+conv2", 128 * 128 * 3 * 256), ("conv3", 128 * 128 * 3 * 256), ("conv4+conv5", 64 * 64 * 3 * 512)),
+    "y1": (("conv2", 128 * 128 * 3 * 256), ("conv3", 128 * 128 * 3 * 256), ("conv4+conv5", 64 * 64 * 3 * 512)),
+    "gates": (("gate+conv1", 3 * 128 * 256 * 128), ("up+conv2", 128 * 128 * 3 * 256),
+              ("conv3", 128 * 128 * 3 * 256), ("conv4+conv5", 64 * 64 * 3 * 512)),
+}
+
+
+def stage_smem_bytes(sd) -> dict[str, int]:
+    """Dynamic shared memory of one block of each stage kernel (builds the
+    library if needed): {"gate+conv1": bytes, "conv2": .., "conv3": ..,
+    "conv4+conv5": ..}."""
+    fn = build.load("decoder_forms").decoder_stage_smem_bytes
+    fn.restype, fn.argtypes = ctypes.c_int, [ctypes.c_int, ctypes.c_int]
+    return {name: fn(int(sd == torch.bfloat16), i)
+            for i, name in enumerate(("gate+conv1", "conv2", "conv3", "conv4+conv5"))}
+
+
+def decode_stage_ms(form: str, folded: dict, *inputs) -> dict[str, float]:
+    """One launch of a form's kernel chain on CUDA tensors with every stage
+    timed by CUDA events inside the call: {stage: ms} in STAGES[form] order.
+    `inputs` as for decode_basis (U, ep), decode_y1 (y1) or decode_gates
+    (latent, gates). A measurement, not counted in LAUNCHES."""
+    if not inputs[0].is_cuda:
+        raise ValueError("decode_stage_ms needs CUDA tensors")
+    ms = (ctypes.c_float * len(STAGES[form]))()
+    tail = [folded[k] for k in _TAIL_KEYS]
+    if form == "basis":
+        _check(*inputs, folded)
+        _run_basis(*inputs, folded["b1"], tail, ms)
+    elif form == "y1":
+        _check_y1(*inputs, folded)
+        _run_y1(*inputs, tail, ms)
+    else:
+        _check_gates(*inputs, folded)
+        _run_gates(*inputs, [folded["w1"], folded["b1"], *tail], ms)
+    return {name: float(t) for (name, _), t in zip(STAGES[form], ms)}
 
 
 def _key(sd) -> str:

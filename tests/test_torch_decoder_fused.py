@@ -314,3 +314,176 @@ def test_cuda_kernel_matches_plain(rng, dtype, n_views):
     else:
         corr = np.corrcoef(out.cpu().numpy().ravel(), ref.cpu().numpy().ravel())[0, 1]
         assert err <= 1e-4 and corr > 0.999
+
+
+# ---------------------------------------------------------------------------
+# The layouts the CUDA kernels read, made in Python: chunked planes, packed
+# weights, the polyphase conv3 and its packed order, conv1 before its upsample.
+
+
+@pytest.mark.parametrize("shape", [(16, 5), (2, 3, 24, 7), (1, 128, 256)])
+def test_pack_chunked_round_trip_and_index(rng, shape):
+    x = torch.tensor(rng.standard_normal(shape).astype(np.float32))
+    p = tf.pack_chunked(x)
+    assert p.shape == (*shape[:-2], shape[-2] // 8, shape[-1], 8) and p.is_contiguous()
+    torch.testing.assert_close(tf.unpack_chunked(p), x, rtol=0, atol=0)
+    C, T = shape[-2:]
+    for c, t in ((0, 0), (C - 1, T - 1), (C // 2 + 3, T // 2)):
+        torch.testing.assert_close(p[..., c // 8, t, c % 8], x[..., c, t], rtol=0, atol=0)
+
+
+def test_pack_weights_index_formulas(rng):
+    w = torch.tensor(rng.standard_normal((3, 24, 32)).astype(np.float32))
+    tc, fma = tf.pack_weights_tc(w), tf.pack_weights_fma(w)
+    assert tc.shape == (3, 4, 24, 8) and tc.is_contiguous() and fma.shape == (3, 32, 24) and fma.is_contiguous()
+    for k, n, c in ((0, 0, 0), (2, 23, 31), (1, 7, 13)):
+        assert tc[k, c // 8, n, c % 8] == w[k, n, c] and fma[k, c, n] == w[k, n, c]
+    # flat offsets, as the kernels address them
+    assert tc.flatten()[((1 * 4 + 13 // 8) * 24 + 7) * 8 + 13 % 8] == w[1, 7, 13]
+    assert fma.flatten()[(1 * 32 + 13) * 24 + 7] == w[1, 7, 13]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_polyphase_matrices_match_jax(rng, dtype):
+    params, state, tp, ts = weights(1, rng)
+    _, _, ab3_ref, c3_ref = jf.polyphase_matrices(jf.fold_decoder_bn(params, state, dtype=jnp.dtype(dtype)))
+    ab3, c3 = tf.polyphase_matrices(tf.fold_decoder_bn(tp, ts, dtype=getattr(torch, dtype)))
+    # the fold's tolerances (test_fold_decoder_bn_matches_jax): a bf16 value may
+    # round one ulp the other way
+    rtol = 2.0 ** -7 if dtype == "bfloat16" else 1e-6
+    for ours, ref in ((ab3, ab3_ref), (c3, c3_ref)):
+        assert ours.shape == ref.shape and str(ours.dtype).removeprefix("torch.") == str(ref.dtype)
+        np.testing.assert_allclose(ours.float().numpy(), np.asarray(ref, np.float32), atol=1e-6, rtol=rtol)
+
+
+def test_polyphase_conv3_is_conv3_of_the_upsample(rng):
+    """In float32 the polyphase form with its edge corrections is the
+    time-order conv3(up2(h2)) up to summation order."""
+    from electrocardio_panorama_tpu_torch.ops.resample import upsample_linear_x2
+
+    _, _, tp, ts = weights(0, rng)
+    folded = tf.fold_decoder_bn(tp, ts)
+    h2 = torch.tensor(rng.standard_normal((3, 128, 256)).astype(np.float32)).relu()
+    ref = torch.nn.functional.conv1d(upsample_linear_x2(h2), folded["w3"].permute(1, 2, 0), padding=1)
+    torch.testing.assert_close(tf._upconv3_plain(h2, folded), ref, rtol=0, atol=2e-5)
+
+
+def test_conv1_before_its_upsample(rng):
+    """sum_k up2(W1_k x)[t + k - 1] is conv1(up2(x)) up to summation order."""
+    from electrocardio_panorama_tpu_torch.ops.resample import upsample_linear_x2
+
+    x = torch.tensor(rng.standard_normal((2, 256, 128)).astype(np.float32))
+    w1 = torch.tensor((rng.standard_normal((3, 128, 256)) * 0.05).astype(np.float32))
+    g = torch.einsum("kfc,nct->nkft", w1, x)
+    ref = torch.nn.functional.conv1d(upsample_linear_x2(x), w1.permute(1, 2, 0), padding=1)
+    torch.testing.assert_close(tf._shift_sum_up2(g), ref, rtol=0, atol=2e-5)
+
+
+def _packed_tail_reference(y1, folded):
+    """conv2 .. conv5 computed from `pack_tail`'s arrays by the kernels' index
+    formulas: what the CUDA stages read, in eager PyTorch."""
+    sd = folded["w2"].dtype
+    w2, b2, w3, b3, cedge, w4, b4, w5, b5 = tf.pack_tail(folded)
+    phase, co = tf.polyphase_order(sd)
+
+    def r(x):
+        return x.to(sd).float()
+
+    def taps(w):  # packed -> [taps, N, Cin]
+        w = w.float()
+        return w.permute(0, 2, 1, 3).reshape(w.shape[0], w.shape[2], -1) if sd == torch.bfloat16 else w.permute(0, 2, 1)
+
+    def conv(x, w, b):
+        return torch.nn.functional.conv1d(x, taps(w).permute(1, 2, 0), b, padding=1)
+
+    h2 = r(torch.relu(conv(y1, w2, b2)))
+    d = conv(h2, w3, None)                                      # [N, 128 packed, 256]
+    d[:, :, 0] += h2[:, :, 0] @ cedge[0].float().t()
+    d[:, :, -1] += h2[:, :, -1] @ cedge[1].float().t()
+    d = r(torch.relu(d + b3[:, None]))
+    h3 = torch.zeros(y1.shape[0], 64, 512)
+    for n in range(128):                                        # packed channel n -> step 2t + phase of co
+        h3[:, co[n], phase[n]::2] = d[:, n]
+    h4 = r(torch.relu(conv(h3, w4, b4)))
+    p = torch.einsum("kc,nct->nkt", w5.float(), h4)
+    p = torch.nn.functional.pad(p, (1, 1))
+    return torch.sigmoid((p[:, 0, :-2] + p[:, 1, 1:-1] + p[:, 2, 2:] + b5) / 3.0)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_packed_tail_reproduces_plain(rng, dtype):
+    from electrocardio_panorama_tpu_torch.ops.convs import full_f32
+
+    _, _, tp, ts = weights(0, rng)
+    folded = tf.fold_decoder_bn(tp, ts, dtype=getattr(torch, dtype))
+    y1 = torch.tensor(rng.standard_normal((2, 128, 256)).astype(np.float32)).relu().to(folded["w2"].dtype).float()
+    tail = tf.pack_tail(folded)
+    assert [tuple(t.shape) for t in tail] == (
+        [(3, 16, 128, 8), (128,), (3, 16, 128, 8), (128,), (2, 128, 128), (3, 8, 64, 8), (64,), (3, 64), (1,)]
+        if dtype == "bfloat16" else
+        [(3, 128, 128), (128,), (3, 128, 128), (128,), (2, 128, 128), (3, 64, 64), (64,), (3, 64), (1,)])
+    assert all(t.is_contiguous() for t in tail)
+    phase, co = tf.polyphase_order(folded["w2"].dtype)
+    assert sorted(zip(phase.tolist(), co.tolist())) == [(p, c) for p in range(2) for c in range(64)]
+    with full_f32():
+        ours, ref = _packed_tail_reference(y1, folded), tf._tail_plain(y1, folded)
+    # same values at the same rounding points; only the summation order differs
+    np.testing.assert_allclose(ours.numpy(), ref.numpy(), atol=2e-6 if dtype == "float32" else 5e-5)
+
+
+def test_packed_weights_are_cached(rng):
+    _, _, tp, ts = weights(3)
+    folded = tf.fold_decoder_bn(tp, ts)
+    tail = tuple(folded[k] for k in tf._TAIL_KEYS)
+    first = tf._cached(tf._pack_tail_list, tail)
+    assert tf._cached(tf._pack_tail_list, tail) is first
+    folded["w2"].mul_(2.0)  # an update in place packs anew
+    again = tf._cached(tf._pack_tail_list, tail)
+    assert again is not first
+    torch.testing.assert_close(again[0], tf.pack_weights_fma(folded["w2"]), rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("form", ["basis", "gates", "y1"])
+def test_cuda_ragged_batch_matches_plain(rng, dtype, form):
+    """B=3 and V=11 with v_tile=16: neither the batch, the views nor the padded
+    view count is a multiple of a kernel tile or of the card's SM count."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    dev = torch.device("cuda")
+    _, _, tp, ts = weights(0, rng)
+    tp = {k: v.to(dev) for k, v in tp.items()}
+    ts = {k: v.to(dev) for k, v in ts.items()}
+    latent = torch.tensor((rng.standard_normal((3, 256, 128)) * 0.3).astype(np.float32), device=dev)
+    views = torch.tensor(rng.uniform(-np.pi, np.pi, (3, 11, 2)).astype(np.float32), device=dev)
+    kw = {"basis": {"enc": angular_encode(views)}, "gates": {"gates": query_gates(tp, views)},
+          "y1": {"enc": angular_encode(views), "head": "y1"}}[form]
+    ref = tf.fused_decode_views(tf.fold_decoder_bn(tp, ts), latent, v_tile=16, plain=True, **kw)
+    folded = tf.fold_decoder_bn(tp, ts, dtype=getattr(torch, dtype))
+    key = dtype if form == "basis" else f"{form}_{dtype}"
+    before = tf.LAUNCHES[key]
+    out = tf.fused_decode_views(folded, latent, v_tile=16, **kw)
+    again = tf.fused_decode_views(folded, latent, v_tile=16, **kw)
+    torch.cuda.synchronize()
+    assert tf.LAUNCHES[key] == before + 2
+    assert out.shape == (3, 11, 512) and torch.equal(out, again)
+    err = float((out - ref).abs().max())
+    if dtype == "float32":
+        assert err <= 2e-5
+    else:
+        corr = np.corrcoef(out.cpu().numpy().ravel(), ref.cpu().numpy().ravel())[0, 1]
+        assert err <= 1e-4 and corr > 0.999
+
+
+def test_stage_table_and_timing_entry_need_the_card(rng):
+    """STAGES counts the tail's multiply-adds per view; the timing entry is a
+    measurement on the card and refuses CPU tensors."""
+    tail = 128 * 128 * 3 * 256 + 64 * 128 * 3 * 512 + 64 * 64 * 3 * 512
+    assert sum(m for _, m in tf.STAGES["y1"]) == sum(m for _, m in tf.STAGES["basis"]) == tail
+    assert sum(m for _, m in tf.STAGES["gates"]) == tail + 3 * 128 * 256 * 128
+    _, _, tp, ts = weights(3)
+    folded = tf.fold_decoder_bn(tp, ts)
+    U, ep = torch.zeros(1, 13, 128, 256), torch.zeros(1, 8, 13)
+    with pytest.raises(ValueError, match="CUDA"):
+        tf.decode_stage_ms("basis", folded, U, ep)
