@@ -38,6 +38,7 @@ The last line is {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import json
 import os
 import re
@@ -163,6 +164,17 @@ def encoder_convs(L: int) -> list[tuple[int, int, int, int]]:
             + [(Cz, 64, 3, 32), (Cz, 128, 3, 32), (Cz, 64, 1, 32)])
 
 
+def encoder_tc_share(L: int) -> float:
+    """Share of one tower-mode A3 launch's products that run on the bf16
+    tensor-core engine: all but conv1's (its recompute and weight gradient;
+    x takes no gradient)."""
+    convs = encoder_convs(L)
+    macs = [co * ci * k * t for co, ci, k, t in convs]
+    tower = sum(macs[1:7])
+    total = (sum(macs) - tower) + 2 * sum(macs) - macs[0]  # recompute after the tower; data + weight grads
+    return 1.0 - 2 * macs[0] / total
+
+
 def encoder_bound_ms(nbytes: int, dtype, batch: int, backward: bool) -> tuple[float, str]:
     """Least time for A2 (or A3: every data gradient but the input's, and
     every weight gradient) at these shapes: bytes over HBM rate vs
@@ -197,7 +209,9 @@ def encoder_kernels(card: str, dev) -> dict:
     from electrocardio_panorama_tpu_torch.models import init_nefnet
     from electrocardio_panorama_tpu_torch.models.nefnet import latents_from_grid
     from electrocardio_panorama_tpu_torch.ops import angular_encode, full_f32, linear, roi_align_ramp
+    from electrocardio_panorama_tpu_torch.ops.kernels import build
     from electrocardio_panorama_tpu_torch.ops.kernels import encoder_fused as a2
+    from electrocardio_panorama_tpu_torch.utils.profiling import device_window
 
     L = LEADS
     rng = np.random.default_rng(1)
@@ -288,6 +302,29 @@ def encoder_kernels(card: str, dev) -> dict:
         grad_bytes = wbytes * 4 // dt.itemsize + nbytes(gate.float())  # float32 gradients
         bb, bby = encoder_bound_ms(in_bytes + nbytes(*kept.values(), dz1, dz2) + grad_bytes, dt, B,
                                    backward=True)
+        a2.backward_section_ms(w, x, gate, ramp, masks, kept, dz1, dz2, lead_num=L, mode="tower")  # warm-up
+        sections = a2.backward_section_ms(w, x, gate, ramp, masks, kept, dz1, dz2, lead_num=L, mode="tower")
+        log("kernels", f"A3 {name} sections (one launch, tower mode, CUDA events): "
+                       + ", ".join(f"{k} {v:.3f} ms" for k, v in sections.items())
+                       + f"; sum {sum(sections.values()):.3f} ms on {card}")
+        split = device_window(lambda: [a2.backward_cuda(w, x, gate, ramp, masks, kept, dz1, dz2, lead_num=L,
+                                                        mode="tower") for _ in range(5)], 5, top=8)
+        log("kernels", f"A3 {name} device ms per launch by kernel (torch.profiler): "
+                       + "; ".join(f"{k} {v:.3f}" for k, v in split["by_kernel"].items())
+                       + f"; all kernels {split['kernel_sum_ms']:.3f} on {card}")
+        if dt == torch.bfloat16:
+            lib = build.load("encoder_bwd")
+            lib.encoder_tc_smem_bytes.argtypes = [ctypes.c_int] * 4
+            lib.encoder_tc_dw_smem_bytes.argtypes = [ctypes.c_int] * 2
+            smem = {f"cig {ci} k{k} s{s} T{t}": lib.encoder_tc_smem_bytes(ci, k, s, t)
+                    for ci, k, s, t in ((128, 7, 1, 128), (128, 3, 1, 128), (64, 3, 1, 128), (128, 3, 1, 16),
+                                        (64, 2, 2, 16), (128, 3, 1, 32))}
+            dw_smem = {f"k{k} T{t}": lib.encoder_tc_dw_smem_bytes(k, t)
+                       for k, t in ((7, 128), (3, 128), (1, 128), (3, 32), (1, 16), (3, 16))}
+            log("kernels", f"tensor-core engine: {encoder_tc_share(L):.4f} of a tower-mode A3 launch's products "
+                           f"(all but conv1's); dynamic shared memory per block, conv_kernel_tc: "
+                           + ", ".join(f"{k} {v} bytes" for k, v in smem.items())
+                           + "; dw_kernel_tc: " + ", ".join(f"{k} {v} bytes" for k, v in dw_smem.items()))
         stats[f"encoder_fwd_{name}"] = dict(max_abs_err=fwd_err, ms=fwd_ms, plain_ms=plain_fwd_ms,
                                             bound_ms=fb, bound_by=fby)
         stats[f"encoder_bwd_{name}"] = dict(max_abs_err=bwd_err, ms=bwd_ms, plain_ms=plain_bwd_ms,
@@ -296,6 +333,29 @@ def encoder_kernels(card: str, dev) -> dict:
                        f"{fby}), A3 {bwd_ms:.3f} ms/launch (plain {plain_bwd_ms:.3f} ms, bound {bb:.4f} ms "
                        f"{bby}) on {card}")
     return stats
+
+
+def engine_kernel_resources(report: str) -> list[str]:
+    """One line per kernel of the encoder's tensor-core engine in a `ptxas -v`
+    report: its name (demangled where c++filt is found), registers, spills and
+    static shared memory."""
+    lines, kernel, spills = [], None, ""
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            kernel = m.group(1) if "kernel_tc" in m.group(1) else None
+            if kernel:
+                try:
+                    kernel = subprocess.run(["c++filt", kernel], capture_output=True, text=True,
+                                            timeout=10).stdout.strip() or kernel
+                except OSError:
+                    pass
+        elif kernel and "spill stores" in line:
+            spills = line.strip()
+        elif kernel and "Used" in line and "registers" in line:
+            lines.append(f"{kernel}: {line.split(':', 1)[1].strip()}; {spills}")
+            kernel = None
+    return lines
 
 
 def stage_kernel_resources(report: str) -> list[str]:
@@ -743,7 +803,7 @@ def main() -> int:
         for line in report.splitlines():
             if "spill" in line and " 0 bytes spill stores" not in line:
                 log("build", f"{name}: {line.strip()}")
-        for line in stage_kernel_resources(report):
+        for line in stage_kernel_resources(report) + engine_kernel_resources(report):
             log("build", f"{name}: {line}")
 
     # --------------------------------------------------------------- 3. kernels

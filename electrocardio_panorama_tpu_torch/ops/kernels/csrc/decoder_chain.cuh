@@ -7,6 +7,7 @@
 
 #include "decoder_fma.cuh"
 #include "decoder_tc.cuh"
+#include "stage_timer.cuh"
 
 namespace dec {
 
@@ -37,29 +38,7 @@ struct Tail {
         static_cast<const float*>(b4), w5, static_cast<const float*>(b5), h2, h3, out              \
   }
 
-// Times the stages of one call for a measurement: with a host array `ms`,
-// records an event on the stream after every stage and, at the end, waits
-// for the stream and writes the stages' milliseconds. Without one (every
-// call of the port's paths) it does nothing and the call stays asynchronous.
-struct StageTimer {
-  float* ms;
-  cudaStream_t stream;
-  cudaEvent_t ev[8];
-  int n = 0;
-  StageTimer(float* ms_, cudaStream_t s) : ms(ms_), stream(s) { mark(); }
-  void mark() {
-    if (!ms) return;
-    cudaEventCreate(&ev[n]);
-    cudaEventRecord(ev[n++], stream);
-  }
-  cudaError_t finish() {
-    if (!ms) return cudaSuccess;
-    const cudaError_t err = cudaStreamSynchronize(stream);
-    for (int i = 0; i + 1 < n; ++i) cudaEventElapsedTime(ms + i, ev[i], ev[i + 1]);
-    for (int i = 0; i < n; ++i) cudaEventDestroy(ev[i]);
-    return err;
-  }
-};
+using timing::StageTimer;
 
 template <typename S, int CIN, int NOUT, int T, int TAPS, int IN, int OUT, bool RELU>
 cudaError_t launch_stage(const StageArgs& a, int slices, cudaStream_t stream) {

@@ -20,7 +20,10 @@
 // mode. Data gradients go through the forward's conv kernel with
 // transposed, flipped weights (encoder_common.cuh).
 
+#include <algorithm>
+
 #include "encoder_common.cuh"
+#include "stage_timer.cuh"
 
 namespace enc {
 namespace {
@@ -28,6 +31,8 @@ namespace {
 constexpr int DW_P = 32;         // positions staged per step in the weight-gradient GEMM
 constexpr int MAX_SPLIT = 8;     // position ranges per weight gradient
 constexpr int TARGET_BLOCKS = 264;
+constexpr int TC_TARGET_BLOCKS = 132;
+constexpr int BF16_MAX_SPLIT = 64;
 
 // out[i] = a[i] where g[i] > 0, else 0.
 template <typename S, typename TA>
@@ -241,6 +246,7 @@ __global__ void dw_reduce_kernel(const float* __restrict__ part, int ranges, lon
 struct Workspace {
   float* part;
   long long part_floats;
+  Pack pack;  // the tensor-core engine's packed weights
 };
 
 template <typename S>
@@ -254,23 +260,41 @@ int weight_grad(const float* dy, int dyC, int dyT, int dy_ts, int dy_to, const v
   a.cig = cig; a.K = K; a.stride = stride; a.pad = pad;
   a.N = N; a.Tout = Tout; a.cog = cog;
   a.part = w.part;
+  // bf16 gradients of every conv but conv1 run on the tensor-core engine,
+  // whose position ranges are whole chunks of tc::BP
+  const bool bf16 = std::is_same<S, __nv_bfloat16>::value;
+  const bool on_tc = bf16 && tc::dw_ok(cig, cog, K, stride, Tout);
+  const int step = on_tc ? tc::BP : DW_P;
   const int R = cig * K, P = N * Tout;
-  const int tiles = blocks_for(R, TC) * (G * cog / TC);
-  int ranges = blocks_for(TARGET_BLOCKS, tiles);
-  ranges = ranges < MAX_SPLIT ? ranges : MAX_SPLIT;
-  const int max_ranges = blocks_for(P, DW_P);
-  ranges = ranges < max_ranges ? ranges : max_ranges;
-  a.per = blocks_for(blocks_for(P, ranges), DW_P) * DW_P;
-  ranges = blocks_for(P, a.per);
+  // blocks per range: a tensor-core block takes every tap of its tile
+  const int tiles = (on_tc ? cig / tc::BN : blocks_for(R, TC)) * (G * cog / TC);
+  // a tensor-core block fills an SM (one wave of blocks on the H100's 132).
+  // bf16 gradients may split into more ranges where the partials fit the
+  // workspace (conv1's, with 6 tiles, into 43); float32 keeps MAX_SPLIT, so
+  // its gradients keep their bits
   const long long n = (long long)G * cog * R;
-  if (ranges * n > w.part_floats) return (int)cudaErrorInvalidValue;
-  auto kern = &dw_kernel<S>;
-  ENC_LAUNCH(kern, dim3(blocks_for(R, TC), G * cog / TC, ranges), dim3(THREADS), st, a);
-  ENC_TRY(cudaGetLastError());
+  const long long cap = bf16 ? std::min<long long>(BF16_MAX_SPLIT, w.part_floats / n) : MAX_SPLIT;
+  int ranges = blocks_for(on_tc ? TC_TARGET_BLOCKS : TARGET_BLOCKS, tiles);
+  ranges = ranges < cap ? ranges : (int)cap;
+  const int max_ranges = blocks_for(P, step);
+  ranges = ranges < max_ranges ? ranges : max_ranges;
+  a.per = blocks_for(blocks_for(P, ranges), step) * step;
+  ranges = blocks_for(P, a.per);
+  if (ranges * n > w.part_floats) ENC_TRY(cudaErrorInvalidValue);
+  if (on_tc) {
+    const tc::DwArgs t{dy, dyC, dyT, dy_ts, dy_to, static_cast<const __nv_bfloat16*>(x), xC, xT, x_gs, x_off,
+                       cig, K, pad, N, Tout, cog, w.part, a.per};
+    ENC_TRY(tc::launch_dw_tc(t, G, ranges, st));
+  } else {
+    auto kern = &dw_kernel<S>;
+    ENC_LAUNCH(kern, dim3(blocks_for(R, TC), G * cog / TC, ranges), dim3(THREADS), st, a);
+    ENC_TRY(cudaGetLastError());
+  }
   auto red = &dw_reduce_kernel;
   ENC_LAUNCH(red, dim3(blocks_for(n, 256)), dim3(256), st, static_cast<const float*>(w.part), ranges, n, cog,
              cig, K, static_cast<float*>(out), wsG, wsO, wsI, wsK);
-  return (int)cudaGetLastError();
+  ENC_TRY(cudaGetLastError());
+  return 0;
 }
 
 // Gradient of a torch conv weight [G*cog, cig, K] from dy [N, G*cog, Tout]
@@ -296,7 +320,8 @@ template <typename S>
 int colsum(const float* a, int N, int C, int T, void* out, cudaStream_t st) {
   auto kern = &colsum_kernel;
   ENC_LAUNCH(kern, dim3(C), dim3(256), st, a, static_cast<float*>(out), N, C, T);
-  return (int)cudaGetLastError();
+  ENC_TRY(cudaGetLastError());
+  return 0;
 }
 
 #define ENC_RC(expr)                   \
@@ -325,15 +350,22 @@ Sizes sizes(int B, int L) {
 
 long long workspace_floats(int B, int L) {
   const Sizes s = sizes(B, L);
-  return 2 * s.zplane32 + s.hplane32 + 3 * s.zplane16 + 8 * s.plane + s.cplane + s.part;
+  // + two bf16 packed-weight buffers
+  return 2 * s.zplane32 + s.hplane32 + 3 * s.zplane16 + 8 * s.plane + s.cplane + s.part + tc::pack_elems(L);
 }
 
+// The chain's sections, in order, for the optional timer (SECTIONS in
+// ops/kernels/encoder_fused.py): recompute, z2_conv2, roi + z-blocks,
+// w_conv + gate, tower, maxpool + conv1.
 template <typename S>
-int backward(void* const* P, int B, int L, int level, float* wsp, cudaStream_t st) {
-  ENC_RC(forward_chain<S>(P, B, L, level, 1, st));
+int backward(void* const* P, int B, int L, int level, float* wsp, float* section_ms, cudaStream_t st) {
+  timing::StageTimer timer(section_ms, st);
+  const Sizes sz = sizes(B, L);
+  float* packed = wsp + workspace_floats(B, L) - tc::pack_elems(L);
+  ENC_RC(forward_chain<S>(P, B, L, level, 1, st, packed));
+  timer.mark();
   const int C = FEAT * L, G7 = SEGS * L, Cz = FEAT * G7, Ch = 64 * G7;
   const int T = FEAT, T16 = ALIGN, T32 = 2 * ALIGN;
-  const Sizes sz = sizes(B, L);
   float* da32 = wsp;
   float* da1_32 = da32 + sz.zplane32;
   float* dHt = da1_32 + sz.zplane32;
@@ -349,7 +381,7 @@ int backward(void* const* P, int B, int L, int level, float* wsp, cudaStream_t s
   float* da2 = dhg + sz.plane;
   float* da1t = da2 + sz.plane;
   float* dc = da1t + sz.plane;
-  const Workspace w{dc + sz.cplane, sz.part};
+  const Workspace w{dc + sz.cplane, sz.part, pack_buffers(packed, L)};
   const S* m6 = static_cast<const S*>(P[M6]);
   auto mask6 = [&](int i) { return m6 + i * sz.plane; };
   auto cs = [](const void* p) { return static_cast<const S*>(p); };
@@ -369,14 +401,14 @@ int backward(void* const* P, int B, int L, int level, float* wsp, cudaStream_t s
                                         FEAT, da1_32, Cz, T32);
     c.emul = cs(P[MC22]);
     c.egt = cs(P[P_C2]);
-    ENC_TRY(launch_conv(c, G7, st));
+    ENC_TRY(launch_conv(c, G7, st, w.pack));
   }
   ENC_RC(wgrad<S>(da1_32, P[P_HT], Ch, T32, 64, 0, FEAT, 64, 3, 1, 1, B, T32, G7, P[G_C22W1], w, st));
   {
     auto c = conv_args<S, float, float>(dx_operand<S>(da1_32, Cz, T32, P[W_C22W1], FEAT, 64, 3, 1), B, T32,
                                         64, dHt, Ch, T32);
     c.b = dx_operand<S>(da32, Cz, T32, P[W_C22WR], FEAT, 64, 1, 0);
-    ENC_TRY(launch_conv(c, G7, st));
+    ENC_TRY(launch_conv(c, G7, st, w.pack));
   }
 
   // ---- z2_conv2.1 (ConvTranspose1d k2 s2, weight [Cz, 64, 2])
@@ -389,7 +421,7 @@ int backward(void* const* P, int B, int L, int level, float* wsp, cudaStream_t s
         operand<S, float>(dHt, Ch, T32, 64, 0, P[W_T], (long long)FEAT * 128, 128, 2, 1, 64, 2, 2, 0), B, T16,
         FEAT, da16, Cz, T16);
     c.egt = cs(P[P_HC]);
-    ENC_TRY(launch_conv(c, G7, st));
+    ENC_TRY(launch_conv(c, G7, st, w.pack));
   }
 
   // ---- z2_conv2.0 (identity residual)
@@ -399,15 +431,17 @@ int backward(void* const* P, int B, int L, int level, float* wsp, cudaStream_t s
                                         FEAT, da1_16, Cz, T16);
     c.emul = cs(P[MC20]);
     c.egt = cs(P[P_C1]);
-    ENC_TRY(launch_conv(c, G7, st));
+    ENC_TRY(launch_conv(c, G7, st, w.pack));
   }
   ENC_RC(wgrad<S>(da1_16, P[P_A], Cz, T16, FEAT, 0, FEAT, FEAT, 3, 1, 1, B, T16, G7, P[G_C20W1], w, st));
   {
     auto c = conv_args<S, float, float>(dx_operand<S>(da1_16, Cz, T16, P[W_C20W1], FEAT, FEAT, 3, 1), B, T16,
                                         FEAT, dA, Cz, T16);
     c.res = da16;
-    ENC_TRY(launch_conv(c, G7, st));
+    ENC_TRY(launch_conv(c, G7, st, w.pack));
   }
+
+  timer.mark();
 
   // ---- roi_align -> z2_conv1 output gradient (relu-masked)
   {
@@ -434,7 +468,7 @@ int backward(void* const* P, int B, int L, int level, float* wsp, cudaStream_t s
                                           C, T);
       c.emul = mask6(4 + z);
       c.egt = cs(P[zr1]);
-      ENC_TRY(launch_conv(c, L, st));
+      ENC_TRY(launch_conv(c, L, st, w.pack));
     }
     ENC_RC(wgrad<S>(da1z, P[P_HW], C, T, FEAT, 64 * z, FEAT, 64, 3, 1, 1, B, T, L, P[z ? G_Z2W1 : G_Z1W1], w, st));
     {
@@ -443,9 +477,11 @@ int backward(void* const* P, int B, int L, int level, float* wsp, cudaStream_t s
       c.o_gs = FEAT;
       c.o_off = 64 * z;
       c.egt = cs(P[P_HW]);
-      ENC_TRY(launch_conv(c, L, st));
+      ENC_TRY(launch_conv(c, L, st, w.pack));
     }
   }
+
+  timer.mark();
 
   // ---- w_conv.0 (identity residual)
   ENC_RC(wgrad<S>(dwa, P[P_WR1M], C, T, FEAT, 0, FEAT, FEAT, 3, 1, 1, B, T, L, P[G_WC2], w, st));
@@ -454,14 +490,14 @@ int backward(void* const* P, int B, int L, int level, float* wsp, cudaStream_t s
                                         C, T);
     c.emul = mask6(3);
     c.egt = cs(P[P_WR1]);
-    ENC_TRY(launch_conv(c, L, st));
+    ENC_TRY(launch_conv(c, L, st, w.pack));
   }
   ENC_RC(wgrad<S>(da1w, P[P_HG], C, T, FEAT, 0, FEAT, FEAT, 3, 1, 1, B, T, L, P[G_WC1], w, st));
   {
     auto c = conv_args<S, float, float>(dx_operand<S>(da1w, C, T, P[W_WC1], FEAT, FEAT, 3, 1), B, T, FEAT, dhg,
                                         C, T);
     c.res = dwa;
-    ENC_TRY(launch_conv(c, L, st));
+    ENC_TRY(launch_conv(c, L, st, w.pack));
   }
 
   // ---- the gate: dgate = sum_t dhg * h3; into the tower: dhg * gate where h3 > 0
@@ -474,6 +510,8 @@ int backward(void* const* P, int B, int L, int level, float* wsp, cudaStream_t s
                T);
     ENC_TRY(cudaGetLastError());
   }
+
+  timer.mark();
 
   // ---- layer1, last block first; da2 holds the block output's gradient
   const int hs[3] = {P_H0, P_H1, P_H2};
@@ -488,7 +526,7 @@ int backward(void* const* P, int B, int L, int level, float* wsp, cudaStream_t s
                                           FEAT, da1t, C, T);
       c.emul = mask6(b);
       c.egt = cs(P[r1s[b]]);
-      ENC_TRY(launch_conv(c, L, st));
+      ENC_TRY(launch_conv(c, L, st, w.pack));
     }
     ENC_RC(wgrad<S>(da1t, P[hs[b]], C, T, FEAT, 0, FEAT, FEAT, 7, 1, 3, B, T, L, P[gk[2 * b]], w, st));
     {
@@ -497,9 +535,11 @@ int backward(void* const* P, int B, int L, int level, float* wsp, cudaStream_t s
                                           FEAT, da2, C, T);
       c.res = da2;
       if (b > 0) c.egt = cs(P[hs[b]]);
-      ENC_TRY(launch_conv(c, L, st));
+      ENC_TRY(launch_conv(c, L, st, w.pack));
     }
   }
+
+  timer.mark();
 
   // ---- maxpool + conv1 (k15, s2, p7, one input channel per lead)
   {
@@ -509,7 +549,8 @@ int backward(void* const* P, int B, int L, int level, float* wsp, cudaStream_t s
     ENC_TRY(cudaGetLastError());
   }
   ENC_RC(wgrad<S>(dc, P[X], L, SEQ, 1, 0, FEAT, 1, 15, 2, 7, B, 2 * T, L, P[G_C1], w, st));
-  return 0;
+  timer.mark();
+  return (int)timer.finish();
 }
 
 }  // namespace
@@ -520,23 +561,46 @@ int backward(void* const* P, int B, int L, int level, float* wsp, cudaStream_t s
 // and masks, every P_* plane (checkpointed ones filled, the others scratch
 // that `level` recomputes), the cotangents D_Z1, D_Z2G (storage type) and
 // the float outputs G_GATE [B, L*128] and G_* (each in its weight's layout).
-// `workspace` holds encoder_bwd_workspace_floats(B, L) floats.
+// `workspace` holds encoder_bwd_workspace_floats(B, L) floats. section_ms:
+// null, or a host array of 6 floats that receives the sections' times (the
+// call then waits for the stream).
 extern "C" long long encoder_bwd_workspace_floats(int B, int L) { return enc::workspace_floats(B, L); }
 
-extern "C" int encoder_bwd_f32(void* const* ptrs, int B, int L, int level, void* workspace, void* stream) {
+extern "C" int encoder_bwd_f32(void* const* ptrs, int B, int L, int level, void* workspace, void* section_ms,
+                               void* stream) {
+  enc::error_site() = enc::ErrorSite{};
   if (B <= 0 || L <= 0 || level < 0 || level > 2) return (int)cudaErrorInvalidValue;
   return enc::backward<float>(ptrs, B, L, level, static_cast<float*>(workspace),
-                              static_cast<cudaStream_t>(stream));
+                              static_cast<float*>(section_ms), static_cast<cudaStream_t>(stream));
 }
 
-extern "C" int encoder_bwd_bf16(void* const* ptrs, int B, int L, int level, void* workspace, void* stream) {
+extern "C" int encoder_bwd_bf16(void* const* ptrs, int B, int L, int level, void* workspace, void* section_ms,
+                                void* stream) {
+  enc::error_site() = enc::ErrorSite{};
   if (B <= 0 || L <= 0 || level < 0 || level > 2) return (int)cudaErrorInvalidValue;
   return enc::backward<__nv_bfloat16>(ptrs, B, L, level, static_cast<float*>(workspace),
-                                      static_cast<cudaStream_t>(stream));
+                                      static_cast<float*>(section_ms), static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int encoder_bwd_nptr() { return enc::NPTR; }
 
 extern "C" const char* encoder_bwd_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+extern "C" const char* encoder_bwd_error_file() { return enc::error_site().file; }
+extern "C" int encoder_bwd_error_line() { return enc::error_site().line; }
+
+// Dynamic shared memory of one tensor-core conv block (encoder_tc.cuh) for a
+// conv of cig input channels per group, K taps, this stride and Tout output
+// steps; 0 where the conv does not run on the engine.
+extern "C" int encoder_tc_smem_bytes(int cig, int K, int stride, int Tout) {
+  const enc::tc::Geometry geo(cig, K, stride, Tout);
+  return enc::tc::conv_ok(cig, 128, Tout) ? enc::tc::conv_smem_bytes(geo, nullptr) : 0;
+}
+
+// Dynamic shared memory of one tensor-core weight-gradient block for K taps
+// and Tout steps; 0 where the gradient does not run on the engine.
+extern "C" int encoder_tc_dw_smem_bytes(int K, int Tout) {
+  return enc::tc::dw_ok(128, 128, K, 1, Tout) ? enc::tc::dw_smem_bytes(K, Tout) : 0;
 }

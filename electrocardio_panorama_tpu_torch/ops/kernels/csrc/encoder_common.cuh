@@ -8,17 +8,19 @@
 //
 // Every convolution of the chain (grouped, any kernel size and stride, the
 // k2s2 transposed conv as two 1x1 convs, and every data gradient as a conv
-// with transposed, flipped weights) runs through one implicit-GEMM SIMT
-// kernel, `conv_kernel`, with a fused epilogue. Storage type S is float or
-// __nv_bfloat16; every product and sum is float. Values round to S where the
+// with transposed, flipped weights) runs through one implicit-GEMM kernel
+// with a fused epilogue (`conv_store`): the SIMT `conv_kernel`, or in bf16
+// the tensor-core engine of encoder_tc.cuh (launch_conv chooses). Storage
+// type S is float or __nv_bfloat16; every product and sum is float. Values round to S where the
 // TPU kernel rounds them (`_stages`' .astype(sd) points); in the backward,
 // gradients are float and round to S only as GEMM operands, as the TPU
 // kernel's dot operands do.
 //
 // Bound: about 29 GFLOP forward and 59 GFLOP backward at B=32, L=3 against
-// tens of MB of planes, so both are bound by operations. This first version
-// is direct SIMT work (no tensor cores) with every intermediate plane in
-// device memory; fusing stages on chip and wgmma are later work.
+// tens of MB of planes, so both are bound by operations. In bfloat16 every
+// conv but conv1 runs on the tensor-core engine of encoder_tc.cuh
+// (mma.sync); float32 and conv1 stay on conv_kernel's direct SIMT work. Every
+// intermediate plane goes through device memory.
 
 #pragma once
 
@@ -61,6 +63,36 @@ enum Ptr {
   G_C20W1, G_C20W2, G_T, G_BT, G_C22W1, G_C22W2, G_C22WR, G_BC22,
   NPTR
 };
+
+// Where the first failed launch of the last call was made, for the wrapper's
+// error message (encoder_*_error_file / _error_line). The entry points reset
+// it when a call begins.
+struct ErrorSite {
+  const char* file = "";
+  int line = 0;
+};
+inline ErrorSite& error_site() {
+  static ErrorSite site;
+  return site;
+}
+// the innermost site of a failure: the first recorded since the call began
+inline cudaError_t failed_at(cudaError_t e, const char* file, int line) {
+  if (e != cudaSuccess && error_site().line == 0) error_site() = ErrorSite{file, line};
+  return e;
+}
+
+// return the error of a failed launch (from a function returning int, or,
+// ENC_CHECK, cudaError_t), recording where it failed
+#define ENC_TRY(expr)                                                      \
+  do {                                                                     \
+    cudaError_t _e = enc::failed_at((expr), __FILE__, __LINE__);           \
+    if (_e != cudaSuccess) return (int)_e;                                 \
+  } while (0)
+#define ENC_CHECK(expr)                                                    \
+  do {                                                                     \
+    cudaError_t _e = enc::failed_at((expr), __FILE__, __LINE__);           \
+    if (_e != cudaSuccess) return _e;                                      \
+  } while (0)
 
 // ------------------------------------------------------------------ scalars
 __device__ __forceinline__ float ld(const float* p) { return *p; }
@@ -107,6 +139,34 @@ struct ConvArgs {
   const S* mul;
   long long mul_sN, mul_sC, mul_sT;
 };
+
+// The fused epilogue of one output element (group g, group-local output
+// channel o, position p = n*Tout + t), shared by the SIMT conv_kernel and the
+// tensor-core engine (encoder_tc.cuh): `va` is the conv's sum, `vb` the
+// second operand's (read only where c.b is set). Each element reads its own
+// residual before it writes, so c.res may be c.out.
+template <typename S, typename TI, typename TO>
+__device__ __forceinline__ void conv_store(const ConvArgs<S, TI, TO>& c, int g, int o, int p, float va,
+                                           float vb) {
+  const int n = p / c.Tout, t = p - n * c.Tout;
+  const int to = t * c.ots + c.oto;
+  const int oc = g * c.o_gs + c.o_off + o;
+  const long long idx = ((long long)n * c.oC + oc) * c.oT + to;
+  float v = va;
+  if (c.b.x != nullptr) v = v + vb;
+  if (c.res != nullptr) v = v + ld(c.res + idx);
+  if (c.bias != nullptr && !c.bias_after_round) v = v + ld(c.bias + g * c.cog + o);
+  if (c.relu) v = fmaxf(v, 0.f);
+  if (c.emul != nullptr) v = v * ld(c.emul + idx);
+  if (c.egt != nullptr && !(ld(c.egt + idx) > 0.f)) v = 0.f;
+  if (std::is_same<TO, S>::value) v = round_s<S>(v);  // a forward plane
+  if (c.bias != nullptr && c.bias_after_round) v = round_s<S>(v + ld(c.bias + g * c.cog + o));
+  st(c.out + idx, v);
+  if (c.out2 != nullptr) {
+    const float m = ld(c.mul + n * c.mul_sN + (long long)oc * c.mul_sC + (long long)to * c.mul_sT);
+    st(c.out2 + idx, v * m);
+  }
+}
 
 template <typename S, typename TI>
 __device__ __forceinline__ void conv_accumulate(const Operand<S, TI>& a, int g, int o0, int p0,
@@ -179,30 +239,17 @@ __global__ void __launch_bounds__(THREADS) conv_kernel(ConvArgs<S, TI, TO> c) {
   for (int i = 0; i < 4; ++i) {
     const int p = p0 + tx + 16 * i;
     if (p >= c.N * c.Tout) continue;
-    const int n = p / c.Tout, t = p - n * c.Tout;
-    const int to = t * c.ots + c.oto;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int o = o0 + ty + 16 * j;
-      const int oc = g * c.o_gs + c.o_off + o;
-      const long long idx = ((long long)n * c.oC + oc) * c.oT + to;
-      float v = acc[j][i];
-      if (c.b.x != nullptr) v = v + acc2[j][i];
-      if (c.res != nullptr) v = v + ld(c.res + idx);
-      if (c.bias != nullptr && !c.bias_after_round) v = v + ld(c.bias + g * c.cog + o);
-      if (c.relu) v = fmaxf(v, 0.f);
-      if (c.emul != nullptr) v = v * ld(c.emul + idx);
-      if (c.egt != nullptr && !(ld(c.egt + idx) > 0.f)) v = 0.f;
-      if (std::is_same<TO, S>::value) v = round_s<S>(v);  // a forward plane
-      if (c.bias != nullptr && c.bias_after_round) v = round_s<S>(v + ld(c.bias + g * c.cog + o));
-      st(c.out + idx, v);
-      if (c.out2 != nullptr) {
-        const float m = ld(c.mul + n * c.mul_sN + (long long)oc * c.mul_sC + (long long)to * c.mul_sT);
-        st(c.out2 + idx, v * m);
-      }
-    }
+    for (int j = 0; j < 4; ++j) conv_store(c, g, o0 + ty + 16 * j, p, acc[j][i], acc2[j][i]);
   }
 }
+
+}  // namespace enc
+
+// the bf16 tensor-core engine (it uses ConvArgs and conv_store above)
+#include "encoder_tc.cuh"
+
+namespace enc {
 
 // ------------------------------------------------------- small forward kernels
 // maxpool(k3, s2, p1) over the conv1 output c [N, C, 256] -> [N, C, 128]:
@@ -289,8 +336,31 @@ ConvArgs<S, TI, TO> conv_args(const Operand<S, TI>& a, int N, int Tout, int cog,
   return c;
 }
 
+// the two packed-weight buffers of the tensor-core engine (operands a and b)
+// in a bf16 scratch of 2 * tc::pack_elems(L) values (float32 reads none)
+struct Pack {
+  __nv_bfloat16* a;
+  __nv_bfloat16* b;
+};
+
+inline Pack pack_buffers(void* scratch, int L) {
+  if (scratch == nullptr) return Pack{nullptr, nullptr};
+  __nv_bfloat16* p = static_cast<__nv_bfloat16*>(scratch);
+  return Pack{p, p + tc::pack_elems(L)};
+}
+
+// bf16 convs with 16k input channels per group run on the tensor-core
+// engine; conv1 and every float32 conv on conv_kernel. The choice depends on
+// the shape and type alone, so a recompute takes the engine of the launch
+// whose plane it replaces.
 template <typename S, typename TI, typename TO>
-cudaError_t launch_conv(const ConvArgs<S, TI, TO>& c, int G, cudaStream_t stream) {
+cudaError_t launch_conv(const ConvArgs<S, TI, TO>& c, int G, cudaStream_t stream, const Pack& pk) {
+  if constexpr (std::is_same<S, __nv_bfloat16>::value) {
+    if (tc::conv_ok(c.a.cig, c.cog, c.Tout) && (c.b.x == nullptr || tc::conv_ok(c.b.cig, c.cog, c.Tout))) {
+      if (pk.a == nullptr) ENC_CHECK(cudaErrorInvalidValue);
+      return tc::launch_conv_tc(c, G, pk.a, pk.b, stream);
+    }
+  }
   const dim3 grid(blocks_for((long long)c.N * c.Tout, TP), G * c.cog / TC);
   auto kern = &conv_kernel<S, TI, TO>;
   ENC_LAUNCH(kern, grid, dim3(THREADS), stream, c);
@@ -308,20 +378,16 @@ void with_mask(ConvArgs<S, TI, TO>& c, const void* mask, void* out2) {
   c.mul_sT = 1;
 }
 
-#define ENC_TRY(expr)                                  \
-  do {                                                 \
-    cudaError_t _e = (expr);                           \
-    if (_e != cudaSuccess) return (int)_e;             \
-  } while (0)
-
 // ------------------------------------------------------------ forward chain
 // level 2: the whole chain; level 1: from the checkpointed tower planes
 // (h0..h3, r1_0..r1_2): conv1, the dropout products and the gate are
 // recomputed, then the post-tower stages; level 0: nothing (every plane is
 // checkpointed). `train` selects the dropout products (masks non-null).
+// `scratch`: the engine's packed weights (pack_buffers).
 template <typename S>
-int forward_chain(void* const* P, int B, int L, int level, int train, cudaStream_t st) {
+int forward_chain(void* const* P, int B, int L, int level, int train, cudaStream_t st, void* scratch) {
   if (level <= 0) return 0;
+  const Pack pk = pack_buffers(scratch, L);
   const int C = FEAT * L, G7 = SEGS * L, Cz = FEAT * G7, Ch = 64 * G7;
   const int T = FEAT;
   const long long plane = (long long)B * C * T;
@@ -333,7 +399,7 @@ int forward_chain(void* const* P, int B, int L, int level, int train, cudaStream
     auto c = conv_args<S, S, S>(fwd_operand<S>(P[X], L, SEQ, 1, 0, P[W_C1], FEAT, 1, 15, 2, 7),
                                 B, 2 * T, FEAT, P[P_C], C, 2 * T);
     c.relu = 1;
-    ENC_TRY(launch_conv(c, L, st));
+    ENC_TRY(launch_conv(c, L, st, pk));
   }
   const void* r1m[3] = {train ? P[P_R1M_0] : P[P_R1_0], train ? P[P_R1M_1] : P[P_R1_1],
                         train ? P[P_R1M_2] : P[P_R1_2]};
@@ -352,7 +418,7 @@ int forward_chain(void* const* P, int B, int L, int level, int train, cudaStream
                                    B, T, FEAT, P[r1s[b]], C, T);
       c1.relu = 1;
       with_mask(c1, mask6(b), const_cast<void*>(r1m[b]));
-      ENC_TRY(launch_conv(c1, L, st));
+      ENC_TRY(launch_conv(c1, L, st, pk));
       auto c2 = conv_args<S, S, S>(fwd_operand<S>(r1m[b], C, T, FEAT, 0, P[wk[2 * b + 1]], FEAT, FEAT, 7, 1, 3),
                                    B, T, FEAT, P[hs[b + 1]], C, T);
       c2.relu = 1;
@@ -362,7 +428,7 @@ int forward_chain(void* const* P, int B, int L, int level, int train, cudaStream
         c2.mul = static_cast<const S*>(P[GATE]);
         c2.mul_sN = C; c2.mul_sC = 1; c2.mul_sT = 0;
       }
-      ENC_TRY(launch_conv(c2, L, st));
+      ENC_TRY(launch_conv(c2, L, st, pk));
     }
   } else {
     const int nb = blocks_for(plane, 256);
@@ -386,12 +452,12 @@ int forward_chain(void* const* P, int B, int L, int level, int train, cudaStream
                                  B, T, FEAT, P[P_WR1], C, T);
     c1.relu = 1;
     with_mask(c1, mask6(3), const_cast<void*>(wr1m));
-    ENC_TRY(launch_conv(c1, L, st));
+    ENC_TRY(launch_conv(c1, L, st, pk));
     auto c2 = conv_args<S, S, S>(fwd_operand<S>(wr1m, C, T, FEAT, 0, P[W_WC2], FEAT, FEAT, 3, 1, 1),
                                  B, T, FEAT, P[P_HW], C, T);
     c2.relu = 1;
     c2.res = static_cast<const S*>(P[P_HG]);
-    ENC_TRY(launch_conv(c2, L, st));
+    ENC_TRY(launch_conv(c2, L, st, pk));
   }
 
   // z1_conv.0 / z2_conv1.0 on the per-lead channel halves of hw (k3, 1x1
@@ -404,13 +470,13 @@ int forward_chain(void* const* P, int B, int L, int level, int train, cudaStream
         B, T, FEAT, P[zr1], C, T);
     c1.relu = 1;
     with_mask(c1, mask6(4 + z), const_cast<void*>(zr1m_p));
-    ENC_TRY(launch_conv(c1, L, st));
+    ENC_TRY(launch_conv(c1, L, st, pk));
     auto c2 = conv_args<S, S, S>(fwd_operand<S>(zr1m_p, C, T, FEAT, 0, P[z ? W_Z2W2 : W_Z1W2], FEAT, FEAT, 3, 1, 1),
                                  B, T, FEAT, P[zf], C, T);
     c2.b = fwd_operand<S>(P[P_HW], C, T, FEAT, 64 * z, P[z ? W_Z2WR : W_Z1WR], FEAT, 64, 1, 1, 0);
     c2.bias = static_cast<const S*>(P[z ? B_Z2 : B_Z1]);
     c2.relu = 1;
-    ENC_TRY(launch_conv(c2, L, st));
+    ENC_TRY(launch_conv(c2, L, st, pk));
   }
 
   // roi_align -> A [B, Cz, 16]
@@ -428,12 +494,12 @@ int forward_chain(void* const* P, int B, int L, int level, int train, cudaStream
                                  B, ALIGN, FEAT, P[P_C1], Cz, ALIGN);
     c1.relu = 1;
     with_mask(c1, train ? P[MC20] : nullptr, const_cast<void*>(c1m));
-    ENC_TRY(launch_conv(c1, G7, st));
+    ENC_TRY(launch_conv(c1, G7, st, pk));
     auto c2 = conv_args<S, S, S>(fwd_operand<S>(c1m, Cz, ALIGN, FEAT, 0, P[W_C20W2], FEAT, FEAT, 3, 1, 1),
                                  B, ALIGN, FEAT, P[P_HC], Cz, ALIGN);
     c2.relu = 1;
     c2.res = static_cast<const S*>(P[P_A]);
-    ENC_TRY(launch_conv(c2, G7, st));
+    ENC_TRY(launch_conv(c2, G7, st, pk));
   }
 
   // z2_conv2.1: ConvTranspose1d(k2, s2), torch weight [Cz, 64, 2], as one
@@ -448,7 +514,7 @@ int forward_chain(void* const* P, int B, int L, int level, int train, cudaStream
     c.oto = k;
     c.bias = static_cast<const S*>(P[B_T]);
     c.bias_after_round = 1;
-    ENC_TRY(launch_conv(c, G7, st));
+    ENC_TRY(launch_conv(c, G7, st, pk));
   }
 
   // z2_conv2.2 (k3 over 32 steps, 64 -> 128 channels per group, 1x1 residual conv with bias)
@@ -458,13 +524,13 @@ int forward_chain(void* const* P, int B, int L, int level, int train, cudaStream
                                  B, 2 * ALIGN, FEAT, P[P_C2], Cz, 2 * ALIGN);
     c1.relu = 1;
     with_mask(c1, train ? P[MC22] : nullptr, const_cast<void*>(c2m));
-    ENC_TRY(launch_conv(c1, G7, st));
+    ENC_TRY(launch_conv(c1, G7, st, pk));
     auto c2 = conv_args<S, S, S>(fwd_operand<S>(c2m, Cz, 2 * ALIGN, FEAT, 0, P[W_C22W2], FEAT, FEAT, 3, 1, 1),
                                  B, 2 * ALIGN, FEAT, P[P_Z2G], Cz, 2 * ALIGN);
     c2.b = fwd_operand<S>(P[P_HT], Ch, 2 * ALIGN, 64, 0, P[W_C22WR], FEAT, 64, 1, 1, 0);
     c2.bias = static_cast<const S*>(P[B_C22]);
     c2.relu = 1;
-    ENC_TRY(launch_conv(c2, G7, st));
+    ENC_TRY(launch_conv(c2, G7, st, pk));
   }
   return 0;
 }

@@ -19,16 +19,22 @@
 // Plain C interface (loaded with ctypes). `ptrs` is a host array of NPTR
 // device pointers in the encoder_common.cuh enum order; inputs X, GATE, RAMP,
 // the weights and every P_* plane must be set (the masks M6, MC20, MC22 and
-// the P_*M dropout planes only when train is 1). Returns 0 or the cudaError_t
-// of the first failed launch.
-extern "C" int encoder_fwd_f32(void* const* ptrs, int B, int L, int train, void* stream) {
+// the P_*M dropout planes only when train is 1). `workspace` holds
+// encoder_fwd_workspace_floats(L) floats (the bf16 engine's packed weights;
+// float32 does not read it). Returns 0 or the cudaError_t of the first failed
+// launch.
+extern "C" long long encoder_fwd_workspace_floats(int L) { return enc::tc::pack_elems(L); }
+
+extern "C" int encoder_fwd_f32(void* const* ptrs, int B, int L, int train, void* workspace, void* stream) {
+  enc::error_site() = enc::ErrorSite{};
   if (B <= 0 || L <= 0) return (int)cudaErrorInvalidValue;
-  return enc::forward_chain<float>(ptrs, B, L, 2, train, static_cast<cudaStream_t>(stream));
+  return enc::forward_chain<float>(ptrs, B, L, 2, train, static_cast<cudaStream_t>(stream), nullptr);
 }
 
-extern "C" int encoder_fwd_bf16(void* const* ptrs, int B, int L, int train, void* stream) {
-  if (B <= 0 || L <= 0) return (int)cudaErrorInvalidValue;
-  return enc::forward_chain<__nv_bfloat16>(ptrs, B, L, 2, train, static_cast<cudaStream_t>(stream));
+extern "C" int encoder_fwd_bf16(void* const* ptrs, int B, int L, int train, void* workspace, void* stream) {
+  enc::error_site() = enc::ErrorSite{};
+  if (B <= 0 || L <= 0 || workspace == nullptr) return (int)cudaErrorInvalidValue;
+  return enc::forward_chain<__nv_bfloat16>(ptrs, B, L, 2, train, static_cast<cudaStream_t>(stream), workspace);
 }
 
 extern "C" int encoder_fwd_nptr() { return enc::NPTR; }
@@ -36,3 +42,6 @@ extern "C" int encoder_fwd_nptr() { return enc::NPTR; }
 extern "C" const char* encoder_fwd_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
+
+extern "C" const char* encoder_fwd_error_file() { return enc::error_site().file; }
+extern "C" int encoder_fwd_error_line() { return enc::error_site().line; }

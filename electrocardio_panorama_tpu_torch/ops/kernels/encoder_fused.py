@@ -14,7 +14,9 @@ mlp1 gate, the ROI ramp, roi_reverse and the lead means stay plain PyTorch
 around it (`make_fused_encode_fn`), as they stay XLA in the JAX package.
 
 `encode_fused` runs the CUDA kernels (`csrc/encoder_fwd.cu`,
-`csrc/encoder_bwd.cu`, shared stages in `csrc/encoder_common.cuh`) for CUDA
+`csrc/encoder_bwd.cu`, shared stages in `csrc/encoder_common.cuh`; in
+bfloat16 every conv but conv1, and its weight gradient, on the tensor-core
+engine of `csrc/encoder_tc.cuh`, float32 and conv1 on SIMT kernels) for CUDA
 tensors, inside one torch.autograd.Function whose forward launches A2 and
 whose backward launches A3; for CPU tensors it runs `encoder_plain`, the
 same function as mask-explicit eager convs through autograd. A failed build
@@ -44,6 +46,7 @@ from __future__ import annotations
 
 import collections
 import ctypes
+import os
 
 import torch
 
@@ -97,6 +100,9 @@ PTR_NAMES = [*_INPUTS, *WEIGHT_KEYS, *PLANES, "D_Z1", "D_Z2G", "G_GATE", *_GRAD_
 _TOWER = ["P_H0", "P_R1_0", "P_H1", "P_R1_1", "P_H2", "P_R1_2", "P_H3"]
 _KEEP = {"off": [], "tower": _TOWER, "full": PLANES}
 _LEVEL = {"off": 2, "tower": 1, "full": 0}
+
+# the sections of one A3 launch that `backward_section_ms` times, in chain order
+SECTIONS = ["recompute", "z2_conv2", "roi + z-blocks", "w_conv + gate", "tower", "maxpool + conv1"]
 
 
 def ckpt_mode(v) -> str:
@@ -235,10 +241,13 @@ def _lib(kind: str, sd):
     fn = getattr(lib, f"encoder_{kind}_{'bf16' if sd == torch.bfloat16 else 'f32'}")
     fn.restype = ctypes.c_int
     if kind == "fwd":
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    else:
         fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
                        ctypes.c_void_p]
+        lib.encoder_fwd_workspace_floats.restype = ctypes.c_longlong
+        lib.encoder_fwd_workspace_floats.argtypes = [ctypes.c_int]
+    else:
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                       ctypes.c_void_p, ctypes.c_void_p]
         lib.encoder_bwd_workspace_floats.restype = ctypes.c_longlong
         lib.encoder_bwd_workspace_floats.argtypes = [ctypes.c_int, ctypes.c_int]
     return lib, fn
@@ -256,7 +265,12 @@ def _raise(lib, kind: str, rc: int):
     err = getattr(lib, f"encoder_{kind}_error_string")
     err.restype = ctypes.c_char_p
     err.argtypes = [ctypes.c_int]
-    raise RuntimeError(f"encoder_{kind} launch failed: {err(rc).decode()} (cudaError {rc})")
+    site = getattr(lib, f"encoder_{kind}_error_file")
+    site.restype = ctypes.c_char_p
+    line = getattr(lib, f"encoder_{kind}_error_line")
+    line.restype = ctypes.c_int
+    where = f"{os.path.basename(site().decode())}:{line()}"
+    raise RuntimeError(f"encoder_{kind} launch failed: {err(rc).decode()} (cudaError {rc}, at {where})")
 
 
 def _input_names(train: bool) -> list[str]:
@@ -277,18 +291,16 @@ def _encoder_fwd_op(inputs: list[torch.Tensor], lead_num: int, train: bool) -> l
     lib, fn = _lib("fwd", x.dtype)
     planes = {n: torch.empty(s, dtype=x.dtype, device=x.device)
               for n, s in plane_shapes(x.shape[0], lead_num).items()}
-    rc = fn(_ptr_table({**t, **planes}), x.shape[0], lead_num, int(train), _stream(x.device))
+    ws = torch.empty(lib.encoder_fwd_workspace_floats(lead_num), dtype=torch.float32, device=x.device)
+    rc = fn(_ptr_table({**t, **planes}), x.shape[0], lead_num, int(train), ws.data_ptr(), _stream(x.device))
     if rc != 0:
         _raise(lib, "fwd", rc)
     return [planes[n] for n in PLANES]
 
 
-@torch.library.custom_op("ecgpan_torch::encoder_bwd", mutates_args=())
-def _encoder_bwd_op(inputs: list[torch.Tensor], kept: list[torch.Tensor], dz1: torch.Tensor,
-                    dz2g: torch.Tensor, lead_num: int, mode: str) -> list[torch.Tensor]:
-    """Kernel A3. `inputs` in `_input_names(True)` order, `kept` the planes
-    `_KEEP[mode]` names; returns [dgate [B, L, 128], *weight grads in
-    WEIGHT_KEYS order], float32."""
+def _run_bwd(inputs, kept, dz1, dz2g, lead_num: int, mode: str, section_ms=None) -> list[torch.Tensor]:
+    """One A3 launch; `section_ms`: None, or a ctypes array of len(SECTIONS)
+    floats that receives the sections' times (the call then waits)."""
     t = {n: v.contiguous() for n, v in zip(_input_names(True), inputs)}
     x = t["X"]
     sd, B, dev = x.dtype, x.shape[0], x.device
@@ -303,10 +315,19 @@ def _encoder_bwd_op(inputs: list[torch.Tensor], kept: list[torch.Tensor], dz1: t
     for gname, wname in zip(_GRAD_NAMES, WEIGHT_KEYS):
         grads[gname] = torch.empty(t[wname].shape, dtype=torch.float32, device=dev)
     ws = torch.empty(lib.encoder_bwd_workspace_floats(B, lead_num), dtype=torch.float32, device=dev)
-    rc = fn(_ptr_table({**t, **grads}), B, lead_num, _LEVEL[mode], ws.data_ptr(), _stream(dev))
+    rc = fn(_ptr_table({**t, **grads}), B, lead_num, _LEVEL[mode], ws.data_ptr(), section_ms, _stream(dev))
     if rc != 0:
         _raise(lib, "bwd", rc)
     return [grads["G_GATE"], *(grads[g] for g in _GRAD_NAMES)]
+
+
+@torch.library.custom_op("ecgpan_torch::encoder_bwd", mutates_args=())
+def _encoder_bwd_op(inputs: list[torch.Tensor], kept: list[torch.Tensor], dz1: torch.Tensor,
+                    dz2g: torch.Tensor, lead_num: int, mode: str) -> list[torch.Tensor]:
+    """Kernel A3. `inputs` in `_input_names(True)` order, `kept` the planes
+    `_KEEP[mode]` names; returns [dgate [B, L, 128], *weight grads in
+    WEIGHT_KEYS order], float32."""
+    return _run_bwd(inputs, kept, dz1, dz2g, lead_num, mode)
 
 
 def _key(sd) -> str:
@@ -331,6 +352,20 @@ def backward_cuda(w: dict, x, gate, ramp, masks, kept: dict, dz1, dz2g, *, lead_
     out = _encoder_bwd_op(inputs, [kept[n] for n in _KEEP[mode]], dz1, dz2g, lead_num, mode)
     LAUNCHES[f"bwd_{_key(x.dtype)}"] += 1
     return out
+
+
+def backward_section_ms(w: dict, x, gate, ramp, masks, kept: dict, dz1, dz2g, *, lead_num: int,
+                        mode: str) -> dict[str, float]:
+    """One A3 launch on CUDA tensors (arguments as for backward_cuda) with
+    each section of its chain timed by CUDA events inside the call:
+    {section: ms} in SECTIONS order. A measurement, not counted in LAUNCHES."""
+    if not x.is_cuda:
+        raise ValueError("backward_section_ms needs CUDA tensors")
+    _check(w, x, gate, ramp, masks, lead_num)
+    ms = (ctypes.c_float * len(SECTIONS))()
+    inputs = [x, gate, ramp, *masks, *(w[k] for k in WEIGHT_KEYS.values())]
+    _run_bwd(inputs, [kept[n] for n in _KEEP[mode]], dz1, dz2g, lead_num, mode, ms)
+    return {name: float(v) for name, v in zip(SECTIONS, ms)}
 
 
 class EncoderFused(torch.autograd.Function):
