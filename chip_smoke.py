@@ -86,6 +86,12 @@ LEADS = 3
 # forward max abs error 2^-5 of the largest |value| and corr > 0.9999,
 # gradients corr > 0.995 and L2 relative 5e-2 (tests/test_torch_encoder_fused.py).
 ENC_BF16_FWD_REL, ENC_BF16_FWD_CORR, ENC_BF16_GRAD_CORR, ENC_BF16_GRAD_L2 = 2.0 ** -5, 0.9999, 0.995, 5e-2
+# A2 -> A3 end to end in float32: each side takes the relu masks of its own
+# forward, and a pre-activation within rounding of 0 may fall either way (one
+# flip moves a tower weight gradient by about 1.4e-3 of its L2 norm at B=32),
+# so every gradient is held at L2 relative 5e-3 and corr > 0.9999, as A4b's
+# are; the tight float32 bars hold A3 on the plain version's forward planes.
+ENC_F32_E2E_L2, ENC_F32_E2E_CORR = 5e-3, 0.9999
 # A4f/A4b against the plain version at 3 groups of 32. float32 forward: max
 # abs error 2e-5 on the output, the moments within 1e-5 (relative and
 # absolute). Gradients: a relu mask whose pre-activation sits within rounding
@@ -164,10 +170,11 @@ def encoder_convs(L: int) -> list[tuple[int, int, int, int]]:
             + [(Cz, 64, 3, 32), (Cz, 128, 3, 32), (Cz, 64, 1, 32)])
 
 
-def encoder_tc_share(L: int) -> float:
-    """Share of one tower-mode A3 launch's products that run on the bf16
-    tensor-core engine: all but conv1's (its recompute and weight gradient;
-    x takes no gradient)."""
+def encoder_engine_share(L: int) -> float:
+    """Share of one tower-mode A3 launch's products that run on the engine
+    of its storage type (the bf16 tensor-core engine, the f32 FMA engine):
+    all but conv1's (its recompute and weight gradient; x takes no
+    gradient)."""
     convs = encoder_convs(L)
     macs = [co * ci * k * t for co, ci, k, t in convs]
     tower = sum(macs[1:7])
@@ -200,11 +207,43 @@ def grad_errors(a, b):
     return bulk, l2, corr
 
 
+def encoder_float64_distances(card, a2, w, x, gate, ramp, masks, dz1, dz2, rois, plain_out, plain_grads,
+                              kernel_run) -> None:
+    """Print how far the float32 kernels and the float32 plain version each
+    lie from a float64 pass of the plain version on the same inputs: the
+    forward's largest absolute difference (z1, the z2 grid, latent_all) and
+    the gradients' worst L2 relative distance and bulk share (elements off by
+    more than 2e-4 of the largest)."""
+    from electrocardio_panorama_tpu_torch.models.nefnet import latents_from_grid
+
+    L = LEADS
+    ws = {k: v.clone().requires_grad_(True) for k, v in w.items()}
+    g = gate.clone().requires_grad_(True)
+    z1, z2g = a2.encoder_plain(ws, x, g, ramp, masks, lead_num=L, float64=True)
+    torch.autograd.backward([z1, z2g], [dz1.double(), dz2.double()])
+    z1, z2g = z1.detach(), z2g.detach()
+    lat = latents_from_grid(z1, z2g.reshape(B, 128 * L, 7, 32), rois.double(), lead_num=L)
+    truth = {"z1": z1, "z2g": z2g, "latent_all": lat.latent_all}
+    truth_grads = {"gate": g.grad, **{k: v.grad for k, v in ws.items()}}
+    kernel_out, kernel_grads = kernel_run
+    parts = []
+    for name, out, grads in (("kernel", kernel_out, kernel_grads), ("plain f32", plain_out, plain_grads)):
+        fwd = max(float((out[k].double() - truth[k]).abs().max()) for k in truth)
+        worst = max((grad_errors(grads[k].double(), truth_grads[k].double()) + (k,) for k in truth_grads),
+                    key=lambda e: e[1])
+        parts.append(f"{name}: forward max abs {fwd:.3e}, worst grad {worst[3]} L2 {worst[1]:.3e} "
+                     f"bulk {worst[0]:.2e}")
+    log("kernels", "encoder f32 distance from a float64 plain pass (B=32, L=3, tower mode): "
+                   + "; ".join(parts) + f" on {card}")
+
+
 def encoder_kernels(card: str, dev) -> dict:
     """A2/A3 against the plain version at B=32, L=3 in float32 and bfloat16:
     z1, the z2 grid and latent_all; every parameter gradient under a fixed
     cotangent; bitwise-equal gradients across encoder_ckpt off/tower/full and
-    across two launches on the same inputs. Returns {"encoder_fwd_f32": {...},
+    across two launches on the same inputs. In float32 both the kernels and
+    the plain version are also measured against a float64 pass of the plain
+    version (printed, not held to a bar). Returns {"encoder_fwd_f32": {...},
     ...} with max_abs_err, ms, plain_ms, bound_ms, bound_by."""
     from electrocardio_panorama_tpu_torch.models import init_nefnet
     from electrocardio_panorama_tpu_torch.models.nefnet import latents_from_grid
@@ -234,11 +273,16 @@ def encoder_kernels(card: str, dev) -> dict:
         masks = tuple(m.to(dt) for m in masks32)
         dz1, dz2 = dz1_32.to(dt), dz2_32.to(dt)
 
+        plain_planes = {}
+
         def run(plain, ckpt="tower"):
             ws = {k: v.clone().requires_grad_(True) for k, v in w.items()}
             g = gate.clone().requires_grad_(True)
             with full_f32():
-                z1, z2g = a2.encode_fused(ws, x, g, ramp, masks, lead_num=L, ckpt=ckpt, plain=plain)
+                if plain:
+                    z1, z2g = a2.encoder_plain(ws, x, g, ramp, masks, lead_num=L, planes=plain_planes)
+                else:
+                    z1, z2g = a2.encode_fused(ws, x, g, ramp, masks, lead_num=L, ckpt=ckpt)
                 torch.autograd.backward([z1, z2g], [dz1, dz2])
             grads = {"gate": g.grad, **{k: v.grad for k, v in ws.items()}}
             z1, z2g = z1.detach().float(), z2g.detach().float()
@@ -255,10 +299,26 @@ def encoder_kernels(card: str, dev) -> dict:
         bitwise = all(torch.equal(grads[m][k], grads["tower"][k])
                       for m in ("off", "full", "repeat") for k in ref_grads)
         same_fwd = all(torch.equal(outs[m][k], outs["tower"][k]) for m in outs for k in ref_out)
-        bwd_err, worst = 0.0, (0.0, 0.0, 1.0, "")
+        held = grads["tower"]
         ok = bitwise and same_fwd
+        if dt == torch.float32:
+            # the tight float32 bars hold A3 on the plain version's forward
+            # planes (the same relu masks on both sides); end to end the bars
+            # are those of ENC_F32_E2E_L2 / ENC_F32_E2E_CORR
+            kept = {n: v.detach() for n, v in plain_planes.items()}
+            held = dict(zip(ref_grads, a2.backward_cuda(w, x, gate, ramp, masks, kept, dz1, dz2, lead_num=L,
+                                                        mode="full")))
+            e2e = [grad_errors(grads["tower"][k].float(), ref.float()) + (k,) for k, ref in ref_grads.items()]
+            ok = ok and all(l2 <= ENC_F32_E2E_L2 and c > ENC_F32_E2E_CORR for _, l2, c, _ in e2e)
+            e2e = max(e2e, key=lambda e: e[1])
+            log("kernels", f"encoder f32 end to end (A2 -> A3, tower mode) vs plain: worst grad {e2e[3]} L2 "
+                           f"{e2e[1]:.3e} (bar {ENC_F32_E2E_L2}) corr {e2e[2]:.7f} (bar {ENC_F32_E2E_CORR}) "
+                           f"bulk {e2e[0]:.2e} (each side on its own relu masks)")
+            encoder_float64_distances(card, a2, w, x, gate, ramp, masks, dz1, dz2, rois, ref_out, ref_grads,
+                                      (outs["tower"], grads["tower"]))
+        bwd_err, worst = 0.0, (0.0, 0.0, 1.0, "")
         for k, ref in ref_grads.items():
-            got = grads["tower"][k]
+            got = held[k]
             bwd_err = max(bwd_err, float((got.float() - ref.float()).abs().max()))
             bulk, l2, corr = grad_errors(got.float(), ref.float())
             if l2 >= worst[1]:
@@ -274,7 +334,8 @@ def encoder_kernels(card: str, dev) -> dict:
             corr = min(compare(outs["tower"][k], ref_out[k])[1] for k in ref_out)
             ok = ok and fwd_err <= ENC_BF16_FWD_REL * top and corr > ENC_BF16_FWD_CORR
         ok = ok and all(bool(torch.isfinite(v).all()) for v in outs["tower"].values())
-        line = (f"encoder {name} B={B} L={L}: forward max|kernel - plain| {fwd_err:.3e}; worst grad "
+        on = "A3 on the plain forward planes, " if dt == torch.float32 else ""
+        line = (f"encoder {name} B={B} L={L}: forward max|kernel - plain| {fwd_err:.3e}; {on}worst grad "
                 f"{worst[3]}: bulk {worst[0]:.2e} L2 {worst[1]:.2e} corr {worst[2]:.6f}; max|dgrad| "
                 f"{bwd_err:.3e}; bitwise across ckpt off/tower/full and a repeat: {bitwise and same_fwd}")
         if not ok:
@@ -312,6 +373,17 @@ def encoder_kernels(card: str, dev) -> dict:
         log("kernels", f"A3 {name} device ms per launch by kernel (torch.profiler): "
                        + "; ".join(f"{k} {v:.3f}" for k, v in split["by_kernel"].items())
                        + f"; all kernels {split['kernel_sum_ms']:.3f} on {card}")
+        if dt == torch.float32:
+            lib = build.load("encoder_bwd")
+            lib.encoder_fma_smem_bytes.argtypes = [ctypes.c_int] * 3
+            lib.encoder_fma_dw_smem_bytes.argtypes = [ctypes.c_int]
+            smem = {f"k{k} s{s} T{t}": lib.encoder_fma_smem_bytes(k, s, t)
+                    for k, s, t in ((7, 1, 128), (3, 1, 128), (1, 1, 16), (2, 2, 16), (3, 1, 16), (3, 1, 32))}
+            dw_smem = {f"k{k}": lib.encoder_fma_dw_smem_bytes(k) for k in (7, 3, 1)}
+            log("kernels", f"FMA engine (encoder_fma.cuh): {encoder_engine_share(L):.4f} of a tower-mode A3 "
+                           f"launch's products (all but conv1's); dynamic shared memory per block, "
+                           f"conv_kernel_fma: " + ", ".join(f"{k} {v} bytes" for k, v in smem.items())
+                           + "; dw_kernel_fma: " + ", ".join(f"{k} {v} bytes" for k, v in dw_smem.items()))
         if dt == torch.bfloat16:
             lib = build.load("encoder_bwd")
             lib.encoder_tc_smem_bytes.argtypes = [ctypes.c_int] * 4
@@ -321,7 +393,8 @@ def encoder_kernels(card: str, dev) -> dict:
                                         (64, 2, 2, 16), (128, 3, 1, 32))}
             dw_smem = {f"k{k} T{t}": lib.encoder_tc_dw_smem_bytes(k, t)
                        for k, t in ((7, 128), (3, 128), (1, 128), (3, 32), (1, 16), (3, 16))}
-            log("kernels", f"tensor-core engine: {encoder_tc_share(L):.4f} of a tower-mode A3 launch's products "
+            log("kernels", f"tensor-core engine (encoder_tc.cuh): {encoder_engine_share(L):.4f} of a tower-mode A3 "
+                           f"launch's products "
                            f"(all but conv1's); dynamic shared memory per block, conv_kernel_tc: "
                            + ", ".join(f"{k} {v} bytes" for k, v in smem.items())
                            + "; dw_kernel_tc: " + ", ".join(f"{k} {v} bytes" for k, v in dw_smem.items()))
@@ -329,21 +402,23 @@ def encoder_kernels(card: str, dev) -> dict:
                                             bound_ms=fb, bound_by=fby)
         stats[f"encoder_bwd_{name}"] = dict(max_abs_err=bwd_err, ms=bwd_ms, plain_ms=plain_bwd_ms,
                                             bound_ms=bb, bound_by=bby)
-        log("kernels", f"ok {line} | A2 {fwd_ms:.3f} ms/launch (plain {plain_fwd_ms:.3f} ms, bound {fb:.4f} ms "
+        engine = "FMA engine encoder_fma.cuh" if dt == torch.float32 else "tensor-core engine encoder_tc.cuh"
+        log("kernels", f"ok {line} | every conv and weight gradient but conv1's on the {engine} | "
+                       f"A2 {fwd_ms:.3f} ms/launch (plain {plain_fwd_ms:.3f} ms, bound {fb:.4f} ms "
                        f"{fby}), A3 {bwd_ms:.3f} ms/launch (plain {plain_bwd_ms:.3f} ms, bound {bb:.4f} ms "
                        f"{bby}) on {card}")
     return stats
 
 
 def engine_kernel_resources(report: str) -> list[str]:
-    """One line per kernel of the encoder's tensor-core engine in a `ptxas -v`
-    report: its name (demangled where c++filt is found), registers, spills and
-    static shared memory."""
+    """One line per kernel of the encoder's engines (tensor-core and FMA) in a
+    `ptxas -v` report: its name (demangled where c++filt is found),
+    registers, spills and static shared memory."""
     lines, kernel, spills = [], None, ""
     for line in report.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
-            kernel = m.group(1) if "kernel_tc" in m.group(1) else None
+            kernel = m.group(1) if re.search(r"kernel_(tc|fma)", m.group(1)) else None
             if kernel:
                 try:
                     kernel = subprocess.run(["c++filt", kernel], capture_output=True, text=True,

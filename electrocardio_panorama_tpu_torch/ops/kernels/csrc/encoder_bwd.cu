@@ -17,7 +17,9 @@
 // reduction is split into a fixed number of position ranges, each block
 // writing its partial sum, and a second kernel adds the partials in order.
 // No atomics, so every run gives the same bits, whatever the checkpoint
-// mode. Data gradients go through the forward's conv kernel with
+// mode. Every weight gradient but conv1's runs on the engine of its storage
+// type (encoder_tc.cuh in bf16, encoder_fma.cuh in float32), conv1's on the
+// SIMT dw_kernel. Data gradients go through the forward's conv engines with
 // transposed, flipped weights (encoder_common.cuh).
 
 #include <algorithm>
@@ -29,10 +31,11 @@ namespace enc {
 namespace {
 
 constexpr int DW_P = 32;         // positions staged per step in the weight-gradient GEMM
-constexpr int MAX_SPLIT = 8;     // position ranges per weight gradient
+constexpr int MAX_SPLIT = 8;     // position ranges the workspace holds for the largest weight gradient
 constexpr int TARGET_BLOCKS = 264;
 constexpr int TC_TARGET_BLOCKS = 132;
-constexpr int BF16_MAX_SPLIT = 64;
+constexpr int FMA_TARGET_BLOCKS = 528;  // four 64-thread blocks per SM
+constexpr int MAX_RANGES = 64;
 
 // out[i] = a[i] where g[i] > 0, else 0.
 template <typename S, typename TA>
@@ -243,16 +246,17 @@ __global__ void dw_reduce_kernel(const float* __restrict__ part, int ranges, lon
   out[g * wsG + o * wsO + i * wsI + k * wsK] = s;
 }
 
+template <typename S>
 struct Workspace {
   float* part;
   long long part_floats;
-  Pack pack;  // the tensor-core engine's packed weights
+  Pack<S> pack;  // the engine's packed weights
 };
 
 template <typename S>
 int weight_grad(const float* dy, int dyC, int dyT, int dy_ts, int dy_to, const void* x, int xC, int xT,
                 int x_gs, int x_off, int cig, int K, int stride, int pad, int N, int Tout, int cog, int G,
-                void* out, long long wsG, long long wsO, long long wsI, long long wsK, const Workspace& w,
+                void* out, long long wsG, long long wsO, long long wsI, long long wsK, const Workspace<S>& w,
                 cudaStream_t st) {
   DwArgs<S> a;
   a.dy = dy; a.dyC = dyC; a.dyT = dyT; a.dy_ts = dy_ts; a.dy_to = dy_to;
@@ -260,21 +264,23 @@ int weight_grad(const float* dy, int dyC, int dyT, int dy_ts, int dy_to, const v
   a.cig = cig; a.K = K; a.stride = stride; a.pad = pad;
   a.N = N; a.Tout = Tout; a.cog = cog;
   a.part = w.part;
-  // bf16 gradients of every conv but conv1 run on the tensor-core engine,
-  // whose position ranges are whole chunks of tc::BP
+  // the gradients of every conv but conv1 run on the engine of their type,
+  // whose position ranges are whole chunks of tc::BP (bf16) or fma::DP (f32)
   const bool bf16 = std::is_same<S, __nv_bfloat16>::value;
   const bool on_tc = bf16 && tc::dw_ok(cig, cog, K, stride, Tout);
-  const int step = on_tc ? tc::BP : DW_P;
+  const bool on_fma = !bf16 && fma::dw_ok(cig, cog, K, stride, pad, Tout);
+  const int step = on_tc ? tc::BP : on_fma ? fma::DP : DW_P;
   const int R = cig * K, P = N * Tout;
-  // blocks per range: a tensor-core block takes every tap of its tile
-  const int tiles = (on_tc ? cig / tc::BN : blocks_for(R, TC)) * (G * cog / TC);
-  // a tensor-core block fills an SM (one wave of blocks on the H100's 132).
-  // bf16 gradients may split into more ranges where the partials fit the
-  // workspace (conv1's, with 6 tiles, into 43); float32 keeps MAX_SPLIT, so
-  // its gradients keep their bits
+  // blocks per range: an engine's block takes every tap of its tile
+  const int tiles = on_tc ? cig / tc::BN * (G * cog / TC)
+                          : on_fma ? fma::dw_tiles(cig, cog, K, G) : blocks_for(R, TC) * (G * cog / TC);
+  // a tensor-core block fills an SM (one wave of blocks on the H100's 132),
+  // four FMA blocks share one. A gradient splits into as many ranges as
+  // its partials fit the workspace, up to MAX_RANGES (conv1's, with 6
+  // tiles, into 43)
   const long long n = (long long)G * cog * R;
-  const long long cap = bf16 ? std::min<long long>(BF16_MAX_SPLIT, w.part_floats / n) : MAX_SPLIT;
-  int ranges = blocks_for(on_tc ? TC_TARGET_BLOCKS : TARGET_BLOCKS, tiles);
+  const long long cap = std::min<long long>(MAX_RANGES, w.part_floats / n);
+  int ranges = blocks_for(on_tc ? TC_TARGET_BLOCKS : on_fma ? FMA_TARGET_BLOCKS : TARGET_BLOCKS, tiles);
   ranges = ranges < cap ? ranges : (int)cap;
   const int max_ranges = blocks_for(P, step);
   ranges = ranges < max_ranges ? ranges : max_ranges;
@@ -285,6 +291,10 @@ int weight_grad(const float* dy, int dyC, int dyT, int dy_ts, int dy_to, const v
     const tc::DwArgs t{dy, dyC, dyT, dy_ts, dy_to, static_cast<const __nv_bfloat16*>(x), xC, xT, x_gs, x_off,
                        cig, K, pad, N, Tout, cog, w.part, a.per};
     ENC_TRY(tc::launch_dw_tc(t, G, ranges, st));
+  } else if (on_fma) {
+    const fma::DwArgs f{dy, dyC, dyT, dy_ts, dy_to, static_cast<const float*>(x), xC, xT, x_gs, x_off,
+                        cig, K, N, Tout, cog, w.part, a.per};
+    ENC_TRY(fma::launch_dw_fma(f, G, ranges, st));
   } else {
     auto kern = &dw_kernel<S>;
     ENC_LAUNCH(kern, dim3(blocks_for(R, TC), G * cog / TC, ranges), dim3(THREADS), st, a);
@@ -301,7 +311,7 @@ int weight_grad(const float* dy, int dyC, int dyT, int dy_ts, int dy_to, const v
 // and its input x (channel map g*x_gs + x_off + i).
 template <typename S>
 int wgrad(const float* dy, const void* x, int xC, int xT, int x_gs, int x_off, int cog, int cig, int K,
-          int stride, int pad, int N, int Tout, int G, void* out, const Workspace& w, cudaStream_t st) {
+          int stride, int pad, int N, int Tout, int G, void* out, const Workspace<S>& w, cudaStream_t st) {
   return weight_grad<S>(dy, G * cog, Tout, 1, 0, x, xC, xT, x_gs, x_off, cig, K, stride, pad, N, Tout, cog,
                         G, out, (long long)cog * cig * K, (long long)cig * K, K, 1, w, st);
 }
@@ -348,10 +358,11 @@ Sizes sizes(int B, int L) {
   return s;
 }
 
+template <typename S>
 long long workspace_floats(int B, int L) {
   const Sizes s = sizes(B, L);
-  // + two bf16 packed-weight buffers
-  return 2 * s.zplane32 + s.hplane32 + 3 * s.zplane16 + 8 * s.plane + s.cplane + s.part + tc::pack_elems(L);
+  // + the engine's two packed-weight buffers
+  return 2 * s.zplane32 + s.hplane32 + 3 * s.zplane16 + 8 * s.plane + s.cplane + s.part + pack_floats<S>(L);
 }
 
 // The chain's sections, in order, for the optional timer (SECTIONS in
@@ -361,7 +372,7 @@ template <typename S>
 int backward(void* const* P, int B, int L, int level, float* wsp, float* section_ms, cudaStream_t st) {
   timing::StageTimer timer(section_ms, st);
   const Sizes sz = sizes(B, L);
-  float* packed = wsp + workspace_floats(B, L) - tc::pack_elems(L);
+  float* packed = wsp + workspace_floats<S>(B, L) - pack_floats<S>(L);
   ENC_RC(forward_chain<S>(P, B, L, level, 1, st, packed));
   timer.mark();
   const int C = FEAT * L, G7 = SEGS * L, Cz = FEAT * G7, Ch = 64 * G7;
@@ -381,7 +392,7 @@ int backward(void* const* P, int B, int L, int level, float* wsp, float* section
   float* da2 = dhg + sz.plane;
   float* da1t = da2 + sz.plane;
   float* dc = da1t + sz.plane;
-  const Workspace w{dc + sz.cplane, sz.part, pack_buffers(packed, L)};
+  const Workspace<S> w{dc + sz.cplane, sz.part, pack_buffers<S>(packed, L)};
   const S* m6 = static_cast<const S*>(P[M6]);
   auto mask6 = [&](int i) { return m6 + i * sz.plane; };
   auto cs = [](const void* p) { return static_cast<const S*>(p); };
@@ -561,10 +572,14 @@ int backward(void* const* P, int B, int L, int level, float* wsp, float* section
 // and masks, every P_* plane (checkpointed ones filled, the others scratch
 // that `level` recomputes), the cotangents D_Z1, D_Z2G (storage type) and
 // the float outputs G_GATE [B, L*128] and G_* (each in its weight's layout).
-// `workspace` holds encoder_bwd_workspace_floats(B, L) floats. section_ms:
+// `workspace` holds encoder_bwd_workspace_floats_f32(B, L) floats
+// (encoder_bwd_workspace_floats_bf16 for encoder_bwd_bf16). section_ms:
 // null, or a host array of 6 floats that receives the sections' times (the
 // call then waits for the stream).
-extern "C" long long encoder_bwd_workspace_floats(int B, int L) { return enc::workspace_floats(B, L); }
+extern "C" long long encoder_bwd_workspace_floats_f32(int B, int L) { return enc::workspace_floats<float>(B, L); }
+extern "C" long long encoder_bwd_workspace_floats_bf16(int B, int L) {
+  return enc::workspace_floats<__nv_bfloat16>(B, L);
+}
 
 extern "C" int encoder_bwd_f32(void* const* ptrs, int B, int L, int level, void* workspace, void* section_ms,
                                void* stream) {
@@ -603,4 +618,22 @@ extern "C" int encoder_tc_smem_bytes(int cig, int K, int stride, int Tout) {
 // and Tout steps; 0 where the gradient does not run on the engine.
 extern "C" int encoder_tc_dw_smem_bytes(int K, int Tout) {
   return enc::tc::dw_ok(128, 128, K, 1, Tout) ? enc::tc::dw_smem_bytes(K, Tout) : 0;
+}
+
+// Dynamic shared memory of one FMA conv block (encoder_fma.cuh) for K taps
+// at this stride and Tout output steps (a k1 second operand takes no more);
+// 0 where the engine has no such taps.
+extern "C" int encoder_fma_smem_bytes(int K, int stride, int Tout) {
+  using namespace enc::fma;
+  if (stride == 1 && K == 7) return conv_smem_bytes<7, 1>(Tout);
+  if (stride == 1 && K == 3) return conv_smem_bytes<3, 1>(Tout);
+  if (stride == 1 && K == 1) return conv_smem_bytes<1, 1>(Tout);
+  if (stride == 2 && K == 2) return conv_smem_bytes<2, 2>(Tout);
+  return 0;
+}
+
+// Dynamic shared memory of one FMA weight-gradient block for K taps; 0
+// where the gradient does not run on the engine.
+extern "C" int encoder_fma_dw_smem_bytes(int K) {
+  return enc::fma::dw_ok(128, 128, K, 1, (K - 1) / 2, 16) ? enc::fma::dw_smem_bytes(K) : 0;
 }

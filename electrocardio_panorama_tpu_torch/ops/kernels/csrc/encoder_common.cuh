@@ -8,19 +8,19 @@
 //
 // Every convolution of the chain (grouped, any kernel size and stride, the
 // k2s2 transposed conv as two 1x1 convs, and every data gradient as a conv
-// with transposed, flipped weights) runs through one implicit-GEMM kernel
-// with a fused epilogue (`conv_store`): the SIMT `conv_kernel`, or in bf16
-// the tensor-core engine of encoder_tc.cuh (launch_conv chooses). Storage
-// type S is float or __nv_bfloat16; every product and sum is float. Values round to S where the
+// with transposed, flipped weights) runs through one implicit-GEMM engine
+// with a fused epilogue (`conv_store`): in bfloat16 the tensor-core engine
+// of encoder_tc.cuh, in float32 the register-tiled FMA engine of
+// encoder_fma.cuh, and conv1 (one input channel per group) in both on the
+// SIMT `conv_kernel` (launch_conv chooses). Storage type S is float or
+// __nv_bfloat16; every product and sum is float. Values round to S where the
 // TPU kernel rounds them (`_stages`' .astype(sd) points); in the backward,
 // gradients are float and round to S only as GEMM operands, as the TPU
 // kernel's dot operands do.
 //
 // Bound: about 29 GFLOP forward and 59 GFLOP backward at B=32, L=3 against
-// tens of MB of planes, so both are bound by operations. In bfloat16 every
-// conv but conv1 runs on the tensor-core engine of encoder_tc.cuh
-// (mma.sync); float32 and conv1 stay on conv_kernel's direct SIMT work. Every
-// intermediate plane goes through device memory.
+// tens of MB of planes, so both are bound by operations. Every intermediate
+// plane goes through device memory.
 
 #pragma once
 
@@ -142,9 +142,9 @@ struct ConvArgs {
 
 // The fused epilogue of one output element (group g, group-local output
 // channel o, position p = n*Tout + t), shared by the SIMT conv_kernel and the
-// tensor-core engine (encoder_tc.cuh): `va` is the conv's sum, `vb` the
-// second operand's (read only where c.b is set). Each element reads its own
-// residual before it writes, so c.res may be c.out.
+// tensor-core and FMA engines (encoder_tc.cuh, encoder_fma.cuh): `va` is the
+// conv's sum, `vb` the second operand's (read only where c.b is set). Each
+// element reads its own residual before it writes, so c.res may be c.out.
 template <typename S, typename TI, typename TO>
 __device__ __forceinline__ void conv_store(const ConvArgs<S, TI, TO>& c, int g, int o, int p, float va,
                                            float vb) {
@@ -217,7 +217,9 @@ __device__ __forceinline__ void conv_accumulate(const Operand<S, TI>& a, int g, 
   }
 }
 
-// grid: (ceil(N*Tout / TP), G*cog / TC); cog is a multiple of TC.
+// conv1's kernel (one input channel per group; every other conv runs on an
+// engine): one operand, no c.b. grid: (ceil(N*Tout / TP), G*cog / TC); cog
+// is a multiple of TC.
 template <typename S, typename TI, typename TO>
 __global__ void __launch_bounds__(THREADS) conv_kernel(ConvArgs<S, TI, TO> c) {
   __shared__ float xs[TR][TP];
@@ -227,27 +229,28 @@ __global__ void __launch_bounds__(THREADS) conv_kernel(ConvArgs<S, TI, TO> c) {
   const int g = oc0 / c.cog, o0 = oc0 - g * c.cog;
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
 
-  float acc[4][4], acc2[4][4];
+  float acc[4][4];
 #pragma unroll
   for (int j = 0; j < 4; ++j)
 #pragma unroll
-    for (int i = 0; i < 4; ++i) acc[j][i] = acc2[j][i] = 0.f;
+    for (int i = 0; i < 4; ++i) acc[j][i] = 0.f;
   conv_accumulate<S, TI>(c.a, g, o0, p0, c.N, c.Tout, xs, ws, acc);
-  if (c.b.x != nullptr) conv_accumulate<S, TI>(c.b, g, o0, p0, c.N, c.Tout, xs, ws, acc2);
 
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int p = p0 + tx + 16 * i;
     if (p >= c.N * c.Tout) continue;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) conv_store(c, g, o0 + ty + 16 * j, p, acc[j][i], acc2[j][i]);
+    for (int j = 0; j < 4; ++j) conv_store(c, g, o0 + ty + 16 * j, p, acc[j][i], 0.f);
   }
 }
 
 }  // namespace enc
 
-// the bf16 tensor-core engine (it uses ConvArgs and conv_store above)
+// the bf16 tensor-core engine and the f32 FMA engine (they use ConvArgs and
+// conv_store above)
 #include "encoder_tc.cuh"
+#include "encoder_fma.cuh"
 
 namespace enc {
 
@@ -336,31 +339,48 @@ ConvArgs<S, TI, TO> conv_args(const Operand<S, TI>& a, int N, int Tout, int cog,
   return c;
 }
 
-// the two packed-weight buffers of the tensor-core engine (operands a and b)
-// in a bf16 scratch of 2 * tc::pack_elems(L) values (float32 reads none)
+// the two packed-weight buffers of the engine of S (operands a and b), each
+// pack_elems(L) values of S, in a scratch of pack_floats<S>(L) floats
+template <typename S>
 struct Pack {
-  __nv_bfloat16* a;
-  __nv_bfloat16* b;
+  S* a;
+  S* b;
 };
 
-inline Pack pack_buffers(void* scratch, int L) {
-  if (scratch == nullptr) return Pack{nullptr, nullptr};
-  __nv_bfloat16* p = static_cast<__nv_bfloat16*>(scratch);
-  return Pack{p, p + tc::pack_elems(L)};
+// the largest conv of the chain is z2_conv2's, 7L groups of [128, 128, 3]
+inline long long pack_elems(int L) { return 7LL * L * 128 * 128 * 3; }
+template <typename S>
+long long pack_floats(int L) {
+  return 2 * pack_elems(L) * (long long)sizeof(S) / (long long)sizeof(float);
 }
 
-// bf16 convs with 16k input channels per group run on the tensor-core
-// engine; conv1 and every float32 conv on conv_kernel. The choice depends on
-// the shape and type alone, so a recompute takes the engine of the launch
-// whose plane it replaces.
+template <typename S>
+Pack<S> pack_buffers(void* scratch, int L) {
+  if (scratch == nullptr) return Pack<S>{nullptr, nullptr};
+  S* p = static_cast<S*>(scratch);
+  return Pack<S>{p, p + pack_elems(L)};
+}
+
+// Every conv but conv1 (16k input channels per group) runs on the engine of
+// its storage type: bf16 on the tensor-core engine, float32 on the FMA
+// engine; conv1 on conv_kernel. The choice depends on the shape and type
+// alone, so a recompute takes the engine of the launch whose plane it
+// replaces.
 template <typename S, typename TI, typename TO>
-cudaError_t launch_conv(const ConvArgs<S, TI, TO>& c, int G, cudaStream_t stream, const Pack& pk) {
+cudaError_t launch_conv(const ConvArgs<S, TI, TO>& c, int G, cudaStream_t stream, const Pack<S>& pk) {
   if constexpr (std::is_same<S, __nv_bfloat16>::value) {
     if (tc::conv_ok(c.a.cig, c.cog, c.Tout) && (c.b.x == nullptr || tc::conv_ok(c.b.cig, c.cog, c.Tout))) {
       if (pk.a == nullptr) ENC_CHECK(cudaErrorInvalidValue);
       return tc::launch_conv_tc(c, G, pk.a, pk.b, stream);
     }
   }
+  if constexpr (std::is_same<S, float>::value && std::is_same<TI, float>::value && std::is_same<TO, float>::value) {
+    if (fma::conv_ok(c.a.cig, c.cog, c.Tout) && (c.b.x == nullptr || fma::conv_ok(c.b.cig, c.cog, c.Tout))) {
+      if (pk.a == nullptr) ENC_CHECK(cudaErrorInvalidValue);
+      return fma::launch_conv_fma(c, G, pk.a, pk.b, stream);
+    }
+  }
+  if (c.b.x != nullptr) ENC_CHECK(cudaErrorInvalidValue);  // conv_kernel takes one operand
   const dim3 grid(blocks_for((long long)c.N * c.Tout, TP), G * c.cog / TC);
   auto kern = &conv_kernel<S, TI, TO>;
   ENC_LAUNCH(kern, grid, dim3(THREADS), stream, c);
@@ -387,7 +407,7 @@ void with_mask(ConvArgs<S, TI, TO>& c, const void* mask, void* out2) {
 template <typename S>
 int forward_chain(void* const* P, int B, int L, int level, int train, cudaStream_t st, void* scratch) {
   if (level <= 0) return 0;
-  const Pack pk = pack_buffers(scratch, L);
+  const Pack<S> pk = pack_buffers<S>(scratch, L);
   const int C = FEAT * L, G7 = SEGS * L, Cz = FEAT * G7, Ch = 64 * G7;
   const int T = FEAT;
   const long long plane = (long long)B * C * T;

@@ -20,15 +20,16 @@
 // device pointers in the encoder_common.cuh enum order; inputs X, GATE, RAMP,
 // the weights and every P_* plane must be set (the masks M6, MC20, MC22 and
 // the P_*M dropout planes only when train is 1). `workspace` holds
-// encoder_fwd_workspace_floats(L) floats (the bf16 engine's packed weights;
-// float32 does not read it). Returns 0 or the cudaError_t of the first failed
-// launch.
-extern "C" long long encoder_fwd_workspace_floats(int L) { return enc::tc::pack_elems(L); }
+// encoder_fwd_workspace_floats_f32(L) floats (encoder_fwd_workspace_floats_bf16
+// for encoder_fwd_bf16): the engine's packed weights. Returns 0 or the
+// cudaError_t of the first failed launch.
+extern "C" long long encoder_fwd_workspace_floats_f32(int L) { return enc::pack_floats<float>(L); }
+extern "C" long long encoder_fwd_workspace_floats_bf16(int L) { return enc::pack_floats<__nv_bfloat16>(L); }
 
 extern "C" int encoder_fwd_f32(void* const* ptrs, int B, int L, int train, void* workspace, void* stream) {
   enc::error_site() = enc::ErrorSite{};
-  if (B <= 0 || L <= 0) return (int)cudaErrorInvalidValue;
-  return enc::forward_chain<float>(ptrs, B, L, 2, train, static_cast<cudaStream_t>(stream), nullptr);
+  if (B <= 0 || L <= 0 || workspace == nullptr) return (int)cudaErrorInvalidValue;
+  return enc::forward_chain<float>(ptrs, B, L, 2, train, static_cast<cudaStream_t>(stream), workspace);
 }
 
 extern "C" int encoder_fwd_bf16(void* const* ptrs, int B, int L, int train, void* workspace, void* stream) {

@@ -3,11 +3,11 @@
 // grouped convolution whose input channels per group are a multiple of 16
 // (all but conv1), and every weight gradient of those, as implicit GEMMs on
 // `mma.sync.m16n8k16` bf16 products with float32 accumulators. The float32
-// instantiation and conv1 stay on the SIMT kernels of encoder_common.cuh and
-// encoder_bwd.cu. Included by encoder_common.cuh after ConvArgs and
-// conv_store, which it uses.
+// instantiation runs on the FMA engine of encoder_fma.cuh, and conv1 in both
+// on the SIMT kernels of encoder_common.cuh and encoder_bwd.cu. Included by
+// encoder_common.cuh after ConvArgs and conv_store, which it uses.
 //
-// Replaces, with the SIMT kernels, the TPU kernels
+// Replaces, with the FMA engine and the SIMT kernels, the TPU kernels
 // electrocardio_panorama_tpu/ops/pallas/encoder_fused.py::_fwd_kernel and
 // ::_bwd_kernel.
 //
@@ -301,7 +301,7 @@ cudaError_t pack(const Operand<bf16, TI>& a, int cog, int G, bf16* out, cudaStre
   return cudaSuccess;
 }
 
-// Packs the weights of a (and b) into wpa (wpb), each pack_elems(L) values,
+// Packs the weights of a (and b) into wpa (wpb), each enc::pack_elems(L) values,
 // and launches the engine.
 template <typename TI, typename TO>
 cudaError_t launch_conv_tc(const ConvArgs<bf16, TI, TO>& c, int G, bf16* wpa, bf16* wpb, cudaStream_t stream) {
@@ -512,10 +512,6 @@ inline cudaError_t launch_dw_tc(const DwArgs& a, int G, int ranges, cudaStream_t
   if (a.K == 3) return launch_dw_k<3>(a, G, ranges, stream);
   return launch_dw_k<1>(a, G, ranges, stream);
 }
-
-// bf16 values of one packed weight buffer: the largest conv of the chain is
-// z2_conv2's, 7L groups of [128, 128, 3]
-inline long long pack_elems(int L) { return 7LL * L * 128 * 128 * 3; }
 
 }  // namespace tc
 }  // namespace enc

@@ -14,9 +14,10 @@ mlp1 gate, the ROI ramp, roi_reverse and the lead means stay plain PyTorch
 around it (`make_fused_encode_fn`), as they stay XLA in the JAX package.
 
 `encode_fused` runs the CUDA kernels (`csrc/encoder_fwd.cu`,
-`csrc/encoder_bwd.cu`, shared stages in `csrc/encoder_common.cuh`; in
-bfloat16 every conv but conv1, and its weight gradient, on the tensor-core
-engine of `csrc/encoder_tc.cuh`, float32 and conv1 on SIMT kernels) for CUDA
+`csrc/encoder_bwd.cu`, shared stages in `csrc/encoder_common.cuh`; every
+conv but conv1, and its weight gradient, on the tensor-core engine of
+`csrc/encoder_tc.cuh` in bfloat16 and on the FMA engine of
+`csrc/encoder_fma.cuh` in float32, conv1 on SIMT kernels) for CUDA
 tensors, inside one torch.autograd.Function whose forward launches A2 and
 whose backward launches A3; for CPU tensors it runs `encoder_plain`, the
 same function as mask-explicit eager convs through autograd. A failed build
@@ -138,15 +139,22 @@ def draw_masks(generator: torch.Generator, B: int, L: int, dtype=torch.float32):
 
 
 # ------------------------------------------------------------- plain version
-def encoder_plain(w: dict, x, gate, ramp, masks=None, *, lead_num: int, planes: dict | None = None):
+def encoder_plain(w: dict, x, gate, ramp, masks=None, *, lead_num: int, planes: dict | None = None,
+                  float64: bool = False):
     """The kernels' function in eager PyTorch: z1 [B, 128L, 128] and the z2
     grid [B, 896L, 32] in x's dtype. `w` maps torch keys to weights, gate is
     [B, L, 128], ramp [B, 7, 16], masks as `draw_masks` (None: eval). Every
     op runs in float32 on values rounded to x's dtype at the kernels' points,
     so autograd gives the kernels' gradient. `planes`, if given, receives the
-    intermediate planes under the kernels' names."""
+    intermediate planes under the kernels' names. `float64=True` (float32
+    inputs only) runs every op in float64 and returns float64: a reference
+    that the float32 kernels and this function's float32 pass are both held
+    against."""
     sd = x.dtype
     mixed = sd != torch.float32
+    if float64 and mixed:
+        raise ValueError(f"encoder_plain: float64=True takes float32 inputs, got {sd}")
+    cd = torch.float64 if float64 else torch.float32
     L = lead_num
     B = x.shape[0]
     C, G7 = FEAT * L, SEGS * L
@@ -158,7 +166,7 @@ def encoder_plain(w: dict, x, gate, ramp, masks=None, *, lead_num: int, planes: 
         return GradRound.apply(t, sd) if mixed else t
 
     def f(k):
-        return w[WEIGHT_KEYS[k]].float()
+        return w[WEIGHT_KEYS[k]].to(cd)
 
     def conv(h, k, pad, groups, stride=1):
         return G(conv1d(h, f(k), stride=stride, padding=pad, groups=groups))
@@ -168,18 +176,18 @@ def encoder_plain(w: dict, x, gate, ramp, masks=None, *, lead_num: int, planes: 
             planes[name] = t
         return t
 
-    m6, mc20, mc22 = (None, None, None) if masks is None else (m.float() for m in masks)
+    m6, mc20, mc22 = (None, None, None) if masks is None else (m.to(cd) for m in masks)
 
     def drop(name, t, m):
         return keep(name, R(t * m)) if m is not None else t
 
-    c = keep("P_C", R(torch.relu(conv(x.float(), "W_C1", 7, L, stride=2))))
+    c = keep("P_C", R(torch.relu(conv(x.to(cd), "W_C1", 7, L, stride=2))))
     h = keep("P_H0", max_pool1d(c, kernel=3, stride=2, padding=1))
     for b in range(3):
         r1 = keep(f"P_R1_{b}", R(torch.relu(conv(h, f"W_L{b}C1", 3, L))))
         r1m = drop(f"P_R1M_{b}", r1, None if m6 is None else m6[b])
         h = keep(f"P_H{b + 1}", R(torch.relu(conv(r1m, f"W_L{b}C2", 3, L) + h)))
-    hg = keep("P_HG", R(h * gate.float().reshape(B, C, 1)))
+    hg = keep("P_HG", R(h * gate.to(cd).reshape(B, C, 1)))
 
     wr1 = keep("P_WR1", R(torch.relu(conv(hg, "W_WC1", 1, L))))
     wr1m = drop("P_WR1M", wr1, None if m6 is None else m6[3])
@@ -198,7 +206,7 @@ def encoder_plain(w: dict, x, gate, ramp, masks=None, *, lead_num: int, planes: 
     # roi_align in closed form, flat (channel, segment) rows
     mid = G(R(0.5 * z2f[..., FEAT // 2 - 1] + 0.5 * z2f[..., FEAT // 2]))  # [B, C]
     midx = G(mid[:, :, None].expand(B, C, ALIGN))
-    A = keep("P_A", R(midx[:, :, None, :] * ramp.float()[:, None]).reshape(B, C * SEGS, ALIGN))
+    A = keep("P_A", R(midx[:, :, None, :] * ramp.to(cd)[:, None]).reshape(B, C * SEGS, ALIGN))
 
     c1 = keep("P_C1", R(torch.relu(conv(A, "W_C20W1", 1, G7))))
     c1m = drop("P_C1M", c1, mc20)
@@ -209,7 +217,8 @@ def encoder_plain(w: dict, x, gate, ramp, masks=None, *, lead_num: int, planes: 
     c2m = drop("P_C2M", c2, mc22)
     pre = (conv(c2m, "W_C22W2", 1, G7) + conv(Ht, "W_C22WR", 0, G7)) + f("B_C22")[:, None]
     z2g = keep("P_Z2G", R(torch.relu(pre)))
-    return z1f.to(sd), z2g.to(sd)
+    od = cd if float64 else sd
+    return z1f.to(od), z2g.to(od)
 
 
 # ------------------------------------------------------------------ kernels
@@ -238,19 +247,20 @@ def _lib(kind: str, sd):
     nptr.restype = ctypes.c_int
     if nptr() != len(PTR_NAMES):
         raise RuntimeError(f"encoder_{kind}: {nptr()} kernel pointers, the wrapper has {len(PTR_NAMES)}")
-    fn = getattr(lib, f"encoder_{kind}_{'bf16' if sd == torch.bfloat16 else 'f32'}")
+    suffix = "bf16" if sd == torch.bfloat16 else "f32"
+    fn = getattr(lib, f"encoder_{kind}_{suffix}")
     fn.restype = ctypes.c_int
+    ws = getattr(lib, f"encoder_{kind}_workspace_floats_{suffix}")
+    ws.restype = ctypes.c_longlong
     if kind == "fwd":
         fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
                        ctypes.c_void_p]
-        lib.encoder_fwd_workspace_floats.restype = ctypes.c_longlong
-        lib.encoder_fwd_workspace_floats.argtypes = [ctypes.c_int]
+        ws.argtypes = [ctypes.c_int]
     else:
         fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
                        ctypes.c_void_p, ctypes.c_void_p]
-        lib.encoder_bwd_workspace_floats.restype = ctypes.c_longlong
-        lib.encoder_bwd_workspace_floats.argtypes = [ctypes.c_int, ctypes.c_int]
-    return lib, fn
+        ws.argtypes = [ctypes.c_int, ctypes.c_int]
+    return lib, fn, ws
 
 
 def _ptr_table(tensors: dict):
@@ -288,10 +298,10 @@ def _encoder_fwd_op(inputs: list[torch.Tensor], lead_num: int, train: bool) -> l
     forward plane, in PLANES order."""
     t = {n: v.contiguous() for n, v in zip(_input_names(train), inputs)}
     x = t["X"]
-    lib, fn = _lib("fwd", x.dtype)
+    lib, fn, ws_floats = _lib("fwd", x.dtype)
     planes = {n: torch.empty(s, dtype=x.dtype, device=x.device)
               for n, s in plane_shapes(x.shape[0], lead_num).items()}
-    ws = torch.empty(lib.encoder_fwd_workspace_floats(lead_num), dtype=torch.float32, device=x.device)
+    ws = torch.empty(ws_floats(lead_num), dtype=torch.float32, device=x.device)
     rc = fn(_ptr_table({**t, **planes}), x.shape[0], lead_num, int(train), ws.data_ptr(), _stream(x.device))
     if rc != 0:
         _raise(lib, "fwd", rc)
@@ -304,7 +314,7 @@ def _run_bwd(inputs, kept, dz1, dz2g, lead_num: int, mode: str, section_ms=None)
     t = {n: v.contiguous() for n, v in zip(_input_names(True), inputs)}
     x = t["X"]
     sd, B, dev = x.dtype, x.shape[0], x.device
-    lib, fn = _lib("bwd", sd)
+    lib, fn, ws_floats = _lib("bwd", sd)
     t.update(zip(_KEEP[mode], (v.contiguous() for v in kept)))
     for n, s in plane_shapes(B, lead_num).items():  # scratch the backward recomputes
         if n not in t:
@@ -314,7 +324,7 @@ def _run_bwd(inputs, kept, dz1, dz2g, lead_num: int, mode: str, section_ms=None)
     grads = {"G_GATE": torch.empty(B, lead_num, FEAT, dtype=torch.float32, device=dev)}
     for gname, wname in zip(_GRAD_NAMES, WEIGHT_KEYS):
         grads[gname] = torch.empty(t[wname].shape, dtype=torch.float32, device=dev)
-    ws = torch.empty(lib.encoder_bwd_workspace_floats(B, lead_num), dtype=torch.float32, device=dev)
+    ws = torch.empty(ws_floats(B, lead_num), dtype=torch.float32, device=dev)
     rc = fn(_ptr_table({**t, **grads}), B, lead_num, _LEVEL[mode], ws.data_ptr(), section_ms, _stream(dev))
     if rc != 0:
         _raise(lib, "bwd", rc)
