@@ -651,9 +651,12 @@ def train_decoder_kernels(card: str, dev) -> dict:
             log("kernels", "FAIL " + line)
             raise SystemExit(1)
 
-        # timing: one launch each, the plain version on the same inputs
+        # timing: one launch each as the trainer runs them (A4b on the planes
+        # A4f kept), the pair, and the plain version on the same inputs
+        planes = a4.forward_cuda(w, x)
         fwd_ms = cuda_ms(lambda: a4.forward_cuda(w, x), reps=10)
-        bwd_ms = cuda_ms(lambda: a4.backward_cuda(w, x, dout), reps=10)
+        bwd_ms = cuda_ms(lambda: a4.backward_cuda(w, x, dout, planes), reps=10)
+        pair_ms = cuda_ms(lambda: a4.backward_cuda(w, x, dout), reps=10)
         with torch.no_grad():
             plain_fwd_ms = cuda_ms(lambda: a4.train_decode_groups_plain(w, x), reps=3)
         ws = {k: v.clone().requires_grad_(True) for k, v in w.items()}
@@ -662,21 +665,22 @@ def train_decoder_kernels(card: str, dev) -> dict:
             out_p, _, _ = a4.train_decode_groups_plain(ws, xg)
             plain_bwd_ms = cuda_ms(lambda: torch.autograd.grad([out_p], [xg, *ws.values()], [dout],
                                                                retain_graph=True), reps=3)
-        # operations: the forward's convs; the backward recomputes them (its
-        # inputs are x, the weights and dout only) and takes every data and
-        # every weight gradient, twice the forward again
+        # operations: the forward's convs; the backward reads the planes the
+        # forward kept (no recompute) and takes every data and every weight
+        # gradient, twice the forward's operations, against x, dout, the
+        # weights and the kept planes read and the float32 gradients written
         fwd_flops = 2 * (CONV1_MACS + TAIL_MACS) * G * nb
         wbytes = nbytes(*w.values())
         fb, fby = bound_ms(fwd_flops, nbytes(x, fwd["out"], fwd["mean"], fwd["var"]) + wbytes, dt)
         grad_bytes = nbytes(x.float()) + sum(v.numel() * 4 for v in w.values())  # float32 gradients
-        bb, bby = bound_ms(3 * fwd_flops, nbytes(x, dout) + wbytes + grad_bytes, dt)
+        bb, bby = bound_ms(2 * fwd_flops, nbytes(x, dout, *planes.values()) + wbytes + grad_bytes, dt)
         stats[f"decoder_train_fwd_{name}"] = dict(max_abs_err=fwd_err, ms=fwd_ms, plain_ms=plain_fwd_ms,
                                                   bound_ms=fb, bound_by=fby)
         stats[f"decoder_train_bwd_{name}"] = dict(max_abs_err=bwd_err, ms=bwd_ms, plain_ms=plain_bwd_ms,
                                                   bound_ms=bb, bound_by=bby)
         log("kernels", f"ok {line} | A4f {fwd_ms:.3f} ms/launch (plain {plain_fwd_ms:.3f} ms, bound {fb:.4f} ms "
-                       f"{fby}), A4b {bwd_ms:.3f} ms/launch (plain {plain_bwd_ms:.3f} ms, bound {bb:.4f} ms "
-                       f"{bby}) on {card}")
+                       f"{fby}), A4b on the kept planes {bwd_ms:.3f} ms/launch (plain {plain_bwd_ms:.3f} ms, "
+                       f"bound {bb:.4f} ms {bby}), A4f + A4b {pair_ms:.3f} ms on {card}")
     return stats
 
 

@@ -1,46 +1,130 @@
-"""Hold the fused encoder of this checkout against another checkout's, bit for bit.
+"""Hold the fused kernels of this checkout against another checkout's, bit for bit.
 
     python -m electrocardio_panorama_tpu_torch.compare_builds OTHER_ROOT [--dtype bfloat16 float32]
 
-Runs kernels A2 and A3 (`encoder_ckpt` tower) once at B=32, L=3 on the
-seeded inputs of `profile_encoder.inputs`, with this checkout's package and
-with the package under OTHER_ROOT (for example a parent commit unpacked with
-`git archive`; it needs `profile_encoder.inputs`), each in a process of its
-own, and prints per dtype one JSON line: how many of the forward planes and
-gradients are bitwise equal, which differ, and their largest difference.
-Needs a CUDA device.
+Runs, with this checkout's package and with the package under OTHER_ROOT
+(for example a parent commit unpacked with `git archive`; it needs
+`profile_encoder.inputs`), each in a process of its own:
+  * kernels A2 and A3 (`encoder_ckpt` tower) once at B=32, L=3 on the seeded
+    inputs of `profile_encoder.inputs`: 55 forward planes and gradients;
+  * kernels A4f and A4b (the fused train decoder) through the autograd path,
+    `train_decode_groups(w, x)` then `out.backward(dout)`, at 3 groups of 32
+    on inputs made here from a seed: out, mean, var, dx and the 18 parameter
+    gradients.
+Prints per dtype and kernel family one JSON line: how many tensors are
+bitwise equal, which differ, and their largest difference.
+
+With --time it then times A4f and A4b at 3 groups of 32 in each checkout,
+in turns (other, this, this, other), each in a process of its own, and
+prints one JSON line per run and dtype: ms per launch (CUDA events) of A4f,
+of A4b as the trainer runs it (on A4f's kept planes where the checkout's
+`backward_cuda` takes them, else recomputing the forward) and of the pair,
+and the device ms by kernel of one A4b launch (`torch.profiler`). Needs a
+CUDA device.
 """
 
 from __future__ import annotations
 
 import argparse
+import inspect
 import json
 import os
 import subprocess
 import sys
 import tempfile
 
+import numpy as np
 import torch
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# the kernel families of a dump, by key prefix
+FAMILIES = {"A2/A3": ("plane ", "grad "), "A4": ("A4 ",)}
+
+
+def a4_inputs(dtype: str, dev, nb: int = 32):
+    """(w, x, dout) of one A4 call at 3 groups of nb, from a seed alone:
+    conv weights scaled to unit gain, non-trivial BN affines, x and the
+    cotangent dout."""
+    rng = np.random.default_rng(10)
+    sd = getattr(torch, dtype)
+    w = {}
+    for i, (co, ci) in enumerate(((128, 256), (128, 128), (64, 128), (64, 64), (1, 64)), start=1):
+        w[f"w{i}"] = torch.tensor(rng.normal(0, (3 * ci) ** -0.5, (3, co, ci)), dtype=torch.float32).to(dev, sd)
+        w[f"b{i}"] = torch.tensor(rng.normal(0, 0.05, co), dtype=torch.float32, device=dev)
+        if i < 5:
+            w[f"g{i}"] = torch.tensor(1 + rng.normal(0, 0.2, co), dtype=torch.float32, device=dev)
+            w[f"o{i}"] = torch.tensor(rng.normal(0, 0.2, co), dtype=torch.float32, device=dev)
+    x = torch.tensor(rng.normal(0, 0.5, (3, 256, nb * 128)), dtype=torch.float32).to(dev, sd)
+    dout = torch.tensor(rng.normal(0, 1, (3, nb, 512)), dtype=torch.float32, device=dev)
+    return w, x, dout
+
+
+def a4_dump(a4, dtype: str, dev, nb: int = 32) -> dict:
+    """out, mean, var, dx and the 18 parameter gradients of one run of the
+    `decoder_train` module `a4` through its autograd path, at 3 groups of nb,
+    on `a4_inputs`."""
+    w, x, dout = a4_inputs(dtype, dev, nb)
+    w = {k: v.requires_grad_(True) for k, v in w.items()}
+    x.requires_grad_(True)
+    out, mean, var = a4.train_decode_groups(w, x)
+    out.backward(dout)
+    return {"A4 out": out.detach(), "A4 mean": mean, "A4 var": var, "A4 grad dx": x.grad,
+            **{f"A4 grad {k}": v.grad for k, v in w.items()}}
 
 
 def dump(root: str, dtype: str, out: str) -> None:
-    """Save every forward plane and gradient of one A2 + A3 run with the
-    package under `root` to `out`."""
+    """Save every forward plane and gradient of one A2 + A3 run and one
+    A4f + A4b run with the package under `root` to `out`."""
     sys.path.insert(0, root)
     from electrocardio_panorama_tpu_torch import profile_encoder as PE
+    from electrocardio_panorama_tpu_torch.ops.kernels import decoder_train as a4
     from electrocardio_panorama_tpu_torch.ops.kernels import encoder_fused as a2
 
-    if not os.path.abspath(a2.__file__).startswith(os.path.abspath(root) + os.sep):
-        raise SystemExit(f"imported {a2.__file__}, not the package under {root}")
+    for mod in (a2, a4):
+        if not os.path.abspath(mod.__file__).startswith(os.path.abspath(root) + os.sep):
+            raise SystemExit(f"imported {mod.__file__}, not the package under {root}")
     t = PE.inputs(32, getattr(torch, dtype), torch.device("cuda"))
     args = (t["w"], t["x"], t["gate"], t["ramp"], t["masks"])
     planes = a2.forward_cuda(*args, lead_num=PE.LEADS)
     kept = {n: planes[n] for n in a2._KEEP["tower"]}
     grads = a2.backward_cuda(*args, kept, t["dz1"], t["dz2"], lead_num=PE.LEADS, mode="tower")
+    dec = a4_dump(a4, dtype, torch.device("cuda"))
     torch.save({**{f"plane {n}": v.cpu() for n, v in planes.items()},
-                **{f"grad {n}": g.cpu() for n, g in zip(["gate", *a2.WEIGHT_KEYS.values()], grads)}}, out)
+                **{f"grad {n}": g.cpu() for n, g in zip(["gate", *a2.WEIGHT_KEYS.values()], grads)},
+                **{k: v.cpu() for k, v in dec.items()}}, out)
+
+
+def a4_times(root: str, dtypes: list[str]) -> None:
+    """Print one JSON line per dtype: ms per launch of A4f, A4b and the pair
+    with the package under `root`, and A4b's device ms by kernel."""
+    sys.path.insert(0, root)
+    from electrocardio_panorama_tpu_torch.ops.kernels import decoder_train as a4
+    from electrocardio_panorama_tpu_torch.profile_encoder import cuda_ms
+    from electrocardio_panorama_tpu_torch.utils.profiling import device_window
+
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True).stdout.strip()
+    kept = "planes" in inspect.signature(a4.backward_cuda).parameters
+    dev = torch.device("cuda")
+    for dtype in dtypes:
+        w, x, dout = a4_inputs(dtype, dev)
+        # the trainer's A4b reads the planes its A4f kept; without them it
+        # recomputes the forward (and then backward_cuda alone is the pair)
+        planes = (a4.forward_cuda(w, x),) if kept else ()
+
+        def bwd():
+            return a4.backward_cuda(w, x, dout, *planes)
+
+        def pair():
+            return a4.backward_cuda(w, x, dout) if kept else (a4.forward_cuda(w, x), a4.backward_cuda(w, x, dout))
+
+        rec = {"root": root, "dtype": dtype, "groups": 3, "nb": 32, "a4b_on_kept_planes": kept,
+               "a4f_ms": cuda_ms(lambda: a4.forward_cuda(w, x), reps=20), "a4b_ms": cuda_ms(bwd, reps=20),
+               "pair_ms": cuda_ms(pair, reps=20)}
+        win = device_window(lambda: [bwd() for _ in range(5)], 5, top=16)
+        rec.update(a4b_device_ms_by_kernel=win["by_kernel"], a4b_device_kernel_sum_ms=win["kernel_sum_ms"],
+                   a4b_device_busy_ms=win["busy_ms"], card=card)
+        print(json.dumps(rec), flush=True)
 
 
 def compare(a: dict, b: dict) -> dict:
@@ -57,10 +141,15 @@ def main(argv=None) -> None:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("other", help="root of the other checkout (holds electrocardio_panorama_tpu_torch/)")
     p.add_argument("--dtype", nargs="+", default=["bfloat16", "float32"], choices=["float32", "bfloat16"])
+    p.add_argument("--time", action="store_true", help="then time A4f and A4b in both checkouts, in turns")
     p.add_argument("--dump", nargs=2, metavar=("DTYPE", "OUT"), help=argparse.SUPPRESS)
+    p.add_argument("--times", action="store_true", help=argparse.SUPPRESS)
     args = p.parse_args(argv)
     if args.dump:
         dump(args.other, *args.dump)
+        return
+    if args.times:
+        a4_times(args.other, args.dtype)
         return
     if not torch.cuda.is_available():
         raise SystemExit("compare_builds needs a CUDA device: the kernels have no CPU mode")
@@ -71,8 +160,15 @@ def main(argv=None) -> None:
                 out = os.path.join(tmp, f"{label}_{dtype}.pt")
                 subprocess.run([sys.executable, os.path.abspath(__file__), root, "--dump", dtype, out], check=True)
                 dumps[label] = torch.load(out)
-            print(json.dumps({"dtype": dtype, "this": HERE, "other": os.path.abspath(args.other),
-                              **compare(dumps["this"], dumps["other"])}), flush=True)
+            for family, prefixes in FAMILIES.items():
+                a, b = ({k: v for k, v in d.items() if k.startswith(prefixes)} for d in dumps.values())
+                print(json.dumps({"dtype": dtype, "kernels": family, "this": HERE,
+                                  "other": os.path.abspath(args.other), **compare(a, b)}), flush=True)
+    if args.time:
+        other = os.path.abspath(args.other)
+        for root in (other, HERE, HERE, other):
+            subprocess.run([sys.executable, os.path.abspath(__file__), root, "--times", "--dtype", *args.dtype],
+                           check=True)
 
 
 if __name__ == "__main__":

@@ -2,9 +2,10 @@
 //
 // Replaces the TPU kernel electrocardio_panorama_tpu/ops/pallas/decoder_train.py
 // ::_train_bwd_kernel (via _bwd_call), the backward of train_decode_groups.
-// Like the TPU kernel it takes only (weights, x, dout) and recomputes the
-// forward (decoder_train_common.cuh forward_chain, the same kernels as the
-// forward launch, so the same bits) into scratch, then walks back:
+// The TPU kernel takes only (weights, x, dout) and recomputes the forward;
+// this one reads the planes that the forward launch (decoder_train_fwd.cu)
+// filled and the wrapper kept (a1..a4, h1..h4, out, mean, var), so it
+// computes gradients only, and walks back:
 //
 //   dz   = dout * out * (1 - out) / 3
 //   conv5: dw5, db5, dh4
@@ -23,8 +24,12 @@
 // each, and each weight gradient as a GEMM over (sample, time) split into a
 // fixed number of position ranges, per-block partials, and a second kernel
 // that adds the partials in order. No atomics, so a repeat launch gives the
-// same bits. Data gradients go through the forward's conv kernel with
-// transposed, flipped weights.
+// same bits. In float32 the data gradients go through the forward's conv
+// kernel with transposed, flipped weights, and the weight gradients through
+// dw_kernel below; in bfloat16 both run on the tensor-core engine of
+// decoder_train_tc.cuh.
+
+#include <type_traits>
 
 #include "decoder_train_common.cuh"
 
@@ -305,13 +310,39 @@ int data_grad(const float* dy, const void* w, float* out, int N, int nb, int Cfo
   return (int)cudaGetLastError();
 }
 
+}  // namespace
+}  // namespace dtr
+
+// the bf16 engine; it reduces its plain weight-gradient partials with
+// dw_reduce_kernel above
+#include "decoder_train_tc.cuh"
+
+namespace dtr {
+namespace {
+
 struct Scratch {
-  float *dz, *bufA, *bufB, *bufU, *s1, *s2, *part;
+  float *dz, *bufA, *bufB, *bufU, *s1, *s2, *part, *bias_part, *edges;
+  __nv_bfloat16* wp;  // the tensor-core data gradient's packed weights
 };
 
+// the weight gradients' partials: the larger of the SIMT and the
+// tensor-core engine's need
+long long part_floats(int N) {
+  long long n = (long long)MAX_SPLIT * C1 * C0 * 3;
+  const long long tc[4] = {tc::part_floats(C1, C0, T0, N, 1), tc::part_floats(C1, C1, T1, N, 0),
+                           tc::part_floats(C2, C1, T1, N, 1), tc::part_floats(C2, C2, T2, N, 0)};
+  for (long long v : tc) n = n > v ? n : v;
+  return n;
+}
+
+constexpr int BIAS_PART = tc::MAX_RANGES * 2 * C1;
+
+// in order: dz, bufA, bufB, bufU, s1, s2, part, bias_part, edges, wp (every
+// offset a multiple of four floats, for 16-byte loads)
 long long workspace_floats(int G, int nb) {
   const long long N = (long long)G * nb;
-  return N * T2 + 2 * N * C1 * T1 + N * C0 * T1 + 2LL * G * STAT_C + (long long)MAX_SPLIT * C1 * C0 * 3;
+  return N * T2 + 2 * N * C1 * T1 + N * C0 * T1 + 2LL * G * STAT_C + part_floats((int)N) + BIAS_PART +
+         2 * N * (C1 + C0) + 3LL * C0 * C1 / 2;
 }
 
 // relu + BN backward of layer `layer`: dh -> da, and the affine gradients.
@@ -347,9 +378,30 @@ int up2_adjoint(const float* du, float* out, int N, int nb, int C, int T, long l
   return (int)cudaGetLastError();
 }
 
+// A conv's bias and weight gradients (weight_grad_s) and its data gradient
+// (data_grad_s): the tensor-core engine in bf16, the SIMT kernels in float32.
+template <typename S, int UP>
+int weight_grad_s(const float* dy, const View<S>& x, int Cin, int Cout, int T, int N, void* out, void* bias_out,
+                  const Scratch& w, cudaStream_t st) {
+  if constexpr (std::is_same<S, __nv_bfloat16>::value) {
+    return tc::weight_grad(dy, x, Cin, Cout, T, N, UP, out, bias_out, w.part, w.bias_part, w.edges, st);
+  } else {
+    DTR_RC(colsum(dy, N, Cout, T, bias_out, st));
+    return weight_grad<S, UP>(dy, x, Cin, Cout, T, N, out, w.part, st);
+  }
+}
+
+template <typename S>
+int data_grad_s(const float* dy, const void* wt, float* out, int N, int nb, int Cfo, int Cfi, int T,
+                const Scratch& w, cudaStream_t st) {
+  if constexpr (std::is_same<S, __nv_bfloat16>::value)
+    return tc::data_grad(dy, wt, out, N, Cfo, Cfi, T, w.wp, st);
+  else
+    return data_grad<S>(dy, wt, out, N, nb, Cfo, Cfi, T, st);
+}
+
 template <typename S>
 int backward(void* const* P, int G, int nb, float* wsp, cudaStream_t st) {
-  DTR_RC(forward_chain<S>(P, G, nb, st));
   const int N = G * nb;
   Scratch w;
   w.dz = wsp;
@@ -359,6 +411,9 @@ int backward(void* const* P, int G, int nb, float* wsp, cudaStream_t st) {
   w.s1 = w.bufU + (long long)N * C0 * T1;
   w.s2 = w.s1 + G * STAT_C;
   w.part = w.s2 + G * STAT_C;
+  w.bias_part = w.part + part_floats(N);
+  w.edges = w.bias_part + BIAS_PART;
+  w.wp = reinterpret_cast<__nv_bfloat16*>(w.edges + 2LL * N * (C1 + C0));
 
   // ---- sigmoid and conv5
   sigmoid_bwd_kernel<<<dim3(blocks_for((long long)N * T2, 256)), dim3(256), 0, st>>>(
@@ -376,28 +431,24 @@ int backward(void* const* P, int G, int nb, float* wsp, cudaStream_t st) {
 
   // ---- BN4 + relu, conv4
   DTR_RC(bn_backward(P, 3, P[P_A4], P[G4], P[O4], w.bufA, w.bufB, P[GG4], P[GO4], w, G, nb, C2, T2, st));
-  DTR_RC(colsum(w.bufB, N, C2, T2, P[GB4], st));
-  DTR_RC((weight_grad<S, 0>(w.bufB, planes<S>(P[P_H3], nb, C2, T2), C2, C2, T2, N, P[GW4], w.part, st)));
-  DTR_RC(data_grad<S>(w.bufB, P[W4], w.bufA, N, nb, C2, C2, T2, st));
+  DTR_RC((weight_grad_s<S, 0>(w.bufB, planes<S>(P[P_H3], nb, C2, T2), C2, C2, T2, N, P[GW4], P[GB4], w, st)));
+  DTR_RC(data_grad_s<S>(w.bufB, P[W4], w.bufA, N, nb, C2, C2, T2, w, st));
 
   // ---- BN3 + relu, conv3 on up2(h2)
   DTR_RC(bn_backward(P, 2, P[P_A3], P[G3], P[O3], w.bufA, w.bufB, P[GG3], P[GO3], w, G, nb, C2, T2, st));
-  DTR_RC(colsum(w.bufB, N, C2, T2, P[GB3], st));
-  DTR_RC((weight_grad<S, 1>(w.bufB, planes<S>(P[P_H2], nb, C1, T1), C1, C2, T2, N, P[GW3], w.part, st)));
-  DTR_RC(data_grad<S>(w.bufB, P[W3], w.bufU, N, nb, C2, C1, T2, st));
+  DTR_RC((weight_grad_s<S, 1>(w.bufB, planes<S>(P[P_H2], nb, C1, T1), C1, C2, T2, N, P[GW3], P[GB3], w, st)));
+  DTR_RC(data_grad_s<S>(w.bufB, P[W3], w.bufU, N, nb, C2, C1, T2, w, st));
   DTR_RC(up2_adjoint(w.bufU, w.bufA, N, nb, C1, T1, (long long)nb * C1 * T1, (long long)C1 * T1, T1, st));
 
   // ---- BN2 + relu, conv2
   DTR_RC(bn_backward(P, 1, P[P_A2], P[G2], P[O2], w.bufA, w.bufB, P[GG2], P[GO2], w, G, nb, C1, T1, st));
-  DTR_RC(colsum(w.bufB, N, C1, T1, P[GB2], st));
-  DTR_RC((weight_grad<S, 0>(w.bufB, planes<S>(P[P_H1], nb, C1, T1), C1, C1, T1, N, P[GW2], w.part, st)));
-  DTR_RC(data_grad<S>(w.bufB, P[W2], w.bufA, N, nb, C1, C1, T1, st));
+  DTR_RC((weight_grad_s<S, 0>(w.bufB, planes<S>(P[P_H1], nb, C1, T1), C1, C1, T1, N, P[GW2], P[GB2], w, st)));
+  DTR_RC(data_grad_s<S>(w.bufB, P[W2], w.bufA, N, nb, C1, C1, T1, w, st));
 
   // ---- BN1 + relu, conv1 on up2(x); dx in x's layout [G, 256, nb*128]
   DTR_RC(bn_backward(P, 0, P[P_A1], P[G1], P[O1], w.bufA, w.bufB, P[GG1], P[GO1], w, G, nb, C1, T1, st));
-  DTR_RC(colsum(w.bufB, N, C1, T1, P[GB1], st));
-  DTR_RC((weight_grad<S, 1>(w.bufB, grouped<S>(P[X], nb, C0, T0), C0, C1, T1, N, P[GW1], w.part, st)));
-  DTR_RC(data_grad<S>(w.bufB, P[W1], w.bufU, N, nb, C1, C0, T1, st));
+  DTR_RC((weight_grad_s<S, 1>(w.bufB, grouped<S>(P[X], nb, C0, T0), C0, C1, T1, N, P[GW1], P[GB1], w, st)));
+  DTR_RC(data_grad_s<S>(w.bufB, P[W1], w.bufU, N, nb, C1, C0, T1, w, st));
   return up2_adjoint(w.bufU, static_cast<float*>(P[DX]), N, nb, C0, T0, (long long)C0 * nb * T0, T0,
                      (long long)nb * T0, st);
 }
@@ -407,8 +458,8 @@ int backward(void* const* P, int G, int nb, float* wsp, cudaStream_t st) {
 
 // Plain C interface (loaded with ctypes). `ptrs` is a host array of
 // dtr::NPTR device pointers in the enum order of decoder_train_common.cuh:
-// the forward's inputs; its planes, out, mean and var as scratch that the
-// recompute fills; dout [G, nb, 512] f32; and the float outputs dx
+// the forward's inputs; its planes, out, mean and var as the forward launch
+// left them (read only); dout [G, nb, 512] f32; and the float outputs dx
 // [G, 256, nb*128], dw1..dw5 [3, Cout, Cin], the bias and BN-affine gradients
 // [Cout]. `workspace` holds decoder_train_bwd_workspace_floats(G, nb) floats.
 extern "C" long long decoder_train_bwd_workspace_floats(int G, int nb) {

@@ -8,6 +8,116 @@
 
 #include "decoder_train_common.cuh"
 
+namespace dtr {
+
+// Moments of a [G*nb, C, T] over each group's (sample, time): mean and
+// biased variance, written at mean[g*stat_sG + c] / var[...]. grid: (C, G).
+__global__ void bn_stats_kernel(const float* __restrict__ a, float* __restrict__ mean,
+                                float* __restrict__ var, int nb, int C, int T, int stat_sG) {
+  __shared__ float red[256];
+  const int c = blockIdx.x, g = blockIdx.y;
+  const int n = nb * T;
+  const float* base = a + ((size_t)g * nb * C + c) * T;
+  float s = 0.f;
+  for (int e = threadIdx.x; e < n; e += blockDim.x) s += base[(size_t)(e / T) * C * T + e % T];
+  const float m = block_sum(s, red) / n;
+  float q = 0.f;
+  for (int e = threadIdx.x; e < n; e += blockDim.x) {
+    const float d = base[(size_t)(e / T) * C * T + e % T] - m;
+    q = fmaf(d, d, q);
+  }
+  const float v = block_sum(q, red) / n;
+  if (threadIdx.x == 0) {
+    mean[g * stat_sG + c] = m;
+    var[g * stat_sG + c] = v;
+  }
+}
+
+// h = relu(xhat * gamma + beta), xhat = (a - mean) * inv, stored as TO
+// (rounded when TO is bf16). Elementwise over [G*nb, C, T].
+template <typename TO>
+__global__ void bn_relu_kernel(const float* __restrict__ a, const float* __restrict__ mean,
+                               const float* __restrict__ var, const float* __restrict__ gamma,
+                               const float* __restrict__ beta, TO* __restrict__ h, long long total,
+                               int nb, int C, int T, int stat_sG) {
+  const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= total) return;
+  const int c = (int)((e / T) % C);
+  const int g = (int)(e / ((long long)nb * C * T));
+  const float xhat = (a[e] - mean[g * stat_sG + c]) * bn_inv(var[g * stat_sG + c]);
+  st(h + e, fmaxf(xhat * gamma[c] + beta[c], 0.f));
+}
+
+// conv5 (Cout = 1) on round_s(h4) + sigmoid(x / 3). grid: (samples, T / blockDim.x).
+template <typename S>
+__global__ void conv5_sigmoid_kernel(const float* __restrict__ h4, const S* __restrict__ w,
+                                     const float* __restrict__ b5, float* __restrict__ out, int T) {
+  __shared__ float ws[3][C2];
+  const int n = blockIdx.x;
+  const int t = blockIdx.y * blockDim.x + threadIdx.x;
+  for (int e = threadIdx.x; e < 3 * C2; e += blockDim.x) ws[e / C2][e % C2] = ld(w + e);
+  __syncthreads();
+  if (t >= T) return;
+  const float* x = h4 + (size_t)n * C2 * T;
+  float acc = 0.f;
+  for (int c = 0; c < C2; ++c) {
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      const int tt = t + k - 1;
+      if (tt >= 0 && tt < T) acc = fmaf(ws[k][c], round_s<S>(x[(size_t)c * T + tt]), acc);
+    }
+  }
+  const float v = (acc + b5[0]) / 3.0f;
+  out[(size_t)n * T + t] = 1.0f / (1.0f + expf(-v));
+}
+
+// A forward conv with tap-major weights w [3, Cout, Cin] over `in`.
+template <typename S, typename TI, int UP>
+cudaError_t launch_conv(const View<TI>& in, const void* w, const void* bias, void* out, int N,
+                        int Cin, int Cout, int T, cudaStream_t st) {
+  conv3_kernel<S, TI, UP><<<dim3(N, T / T_T, Cout / CO_T), dim3(THREADS), 0, st>>>(
+      in, static_cast<const S*>(w), (long long)Cout * Cin, (long long)Cin, 1LL,
+      static_cast<const float*>(bias), static_cast<float*>(out), Cin, Cout, T);
+  return cudaGetLastError();
+}
+
+// Moments of layer `layer` (0..3) of plane a, then h = relu(bn(a)) as TO.
+template <typename TO>
+int bn_layer(void* const* P, int layer, const void* a, const void* gamma, const void* beta, void* h,
+             int G, int nb, int C, int T, cudaStream_t st) {
+  float* mean = static_cast<float*>(P[MEAN]) + layer * STAT_C;
+  float* var = static_cast<float*>(P[VAR]) + layer * STAT_C;
+  const int sG = 4 * STAT_C;
+  bn_stats_kernel<<<dim3(C, G), dim3(256), 0, st>>>(static_cast<const float*>(a), mean, var, nb, C, T, sG);
+  DTR_TRY(cudaGetLastError());
+  const long long total = (long long)G * nb * C * T;
+  bn_relu_kernel<TO><<<dim3(blocks_for(total, 256)), dim3(256), 0, st>>>(
+      static_cast<const float*>(a), mean, var, static_cast<const float*>(gamma),
+      static_cast<const float*>(beta), static_cast<TO*>(h), total, nb, C, T, sG);
+  return (int)cudaGetLastError();
+}
+
+// The forward chain: fills P_A1..P_H4, OUT, and the used channels of MEAN
+// and VAR [G, 4, 128] (the wrapper zero-fills the padding).
+template <typename S>
+int forward_chain(void* const* P, int G, int nb, cudaStream_t st) {
+  const int N = G * nb;
+  DTR_TRY((launch_conv<S, S, 1>(grouped<S>(P[X], nb, C0, T0), P[W1], P[B1], P[P_A1], N, C0, C1, T1, st)));
+  DTR_RC(bn_layer<S>(P, 0, P[P_A1], P[G1], P[O1], P[P_H1], G, nb, C1, T1, st));
+  DTR_TRY((launch_conv<S, S, 0>(planes<S>(P[P_H1], nb, C1, T1), P[W2], P[B2], P[P_A2], N, C1, C1, T1, st)));
+  DTR_RC(bn_layer<S>(P, 1, P[P_A2], P[G2], P[O2], P[P_H2], G, nb, C1, T1, st));
+  DTR_TRY((launch_conv<S, S, 1>(planes<S>(P[P_H2], nb, C1, T1), P[W3], P[B3], P[P_A3], N, C1, C2, T2, st)));
+  DTR_RC(bn_layer<S>(P, 2, P[P_A3], P[G3], P[O3], P[P_H3], G, nb, C2, T2, st));
+  DTR_TRY((launch_conv<S, S, 0>(planes<S>(P[P_H3], nb, C2, T2), P[W4], P[B4], P[P_A4], N, C2, C2, T2, st)));
+  DTR_RC(bn_layer<float>(P, 3, P[P_A4], P[G4], P[O4], P[P_H4], G, nb, C2, T2, st));
+  conv5_sigmoid_kernel<S><<<dim3(N, T2 / 128), dim3(128), 0, st>>>(
+      static_cast<const float*>(P[P_H4]), static_cast<const S*>(P[W5]), static_cast<const float*>(P[B5]),
+      static_cast<float*>(P[OUT]), T2);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace dtr
+
 // Plain C interface (loaded with ctypes). `ptrs` is a host array of
 // dtr::NPTR device pointers in the enum order of decoder_train_common.cuh:
 // x [G, 256, nb*128] S; w1..w5 [3, Cout, Cin] S; biases and BN affines f32;

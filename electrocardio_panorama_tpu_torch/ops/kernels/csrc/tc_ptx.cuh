@@ -1,0 +1,73 @@
+// Inline PTX wrappers shared by the bfloat16 tensor-core engines of the fused
+// encoder (encoder_tc.cuh) and of the fused train decoder's backward
+// (decoder_train_tc.cuh), for Hopper, sm_90a: cp.async copies into shared
+// memory, ldmatrix loads of 8x8 bf16 matrices, the mma.sync m16n8k16 bf16
+// product with float32 accumulators and a warp's 32 x 32 tile of them, and
+// packing floats into bf16 pairs.
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace tcptx {
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory"); }
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+// d += a * b: a 16x16 (row), b 16x8 (col), bf16; d float
+__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// two floats as a bf16 pair (round to nearest even), lo in the low half
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+__device__ __forceinline__ uint4 pack8(const float (&f)[8]) {
+  return make_uint4(pack2(f[0], f[1]), pack2(f[2], f[3]), pack2(f[4], f[5]), pack2(f[6], f[7]));
+}
+
+// a warp's 32 x 32 tile of products from one k16 step: A rows at a_addr (two
+// m16 tiles, 16 rows apart), B rows at b_addr[2] (two pairs of n8 tiles)
+__device__ __forceinline__ void warp_step(float (&acc)[2][4][4], uint32_t a_addr, uint32_t a_step,
+                                          uint32_t b0_addr, uint32_t b1_addr) {
+  uint32_t a[2][4], b[2][4];
+  ldmatrix_x4(a[0], a_addr);
+  ldmatrix_x4(a[1], a_addr + a_step);
+  ldmatrix_x4(b[0], b0_addr);
+  ldmatrix_x4(b[1], b1_addr);
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int nj = 0; nj < 2; ++nj) {
+      mma(acc[mi][2 * nj], a[mi], b[nj][0], b[nj][1]);
+      mma(acc[mi][2 * nj + 1], a[mi], b[nj][2], b[nj][3]);
+    }
+}
+
+}  // namespace tcptx

@@ -23,10 +23,17 @@ statistics are auxiliary state, not a loss path.
 for CUDA tensors, inside one torch.autograd.Function whose forward launches
 A4f and whose backward launches A4b; for CPU tensors it runs
 `train_decode_groups_plain`, the same function as eager ops through autograd.
-A failed build or launch raises; nothing falls back. Like the TPU kernel, the
-backward keeps only its inputs and recomputes the forward; the kernels hold
-their planes in device memory and take any per-group batch, so the TPU
-kernel's VMEM rule (`_validate_train_nb`) has no counterpart here.
+A failed build or launch raises; nothing falls back. The kernels hold their
+planes in device memory and take any per-group batch, so the TPU kernel's
+VMEM rule (`_validate_train_nb`) has no counterpart here.
+
+Residual: the TPU kernel's custom VJP keeps only (weights, x) and its
+backward recomputes the forward. Here the autograd Function keeps the planes
+that A4f fills (a1..a4, h1..h4, out and the moments; about 82 MB in bfloat16
+and 100 MB in float32 at 3 groups of 32) and A4b reads them instead of
+recomputing them. The function of (weights, x, dout) is the same; only the
+residual differs, as the fused encoder's `encoder_ckpt` modes do.
+`backward_cuda(w, x, dout)` without planes launches A4f first.
 
 Storage dtype: that of x and the conv weights (float32, or bfloat16 under the
 mixed-precision step). Values round to it where the TPU kernel rounds them
@@ -35,6 +42,9 @@ product and sum are float32, and in the backward a gradient rounds to it only
 as a conv product's operand (`GradRound`). The TPU kernel's upsample matmuls
 round one more intermediate that the time-order form does not have, so
 bfloat16 agrees with the JAX package within a tolerance, not bitwise.
+In bfloat16 A4b runs its data and weight gradients on tensor cores
+(`csrc/decoder_train_tc.cuh`): every product is of two bfloat16 values, as
+here, and only the order of the float32 sums differs.
 """
 
 from __future__ import annotations
@@ -72,12 +82,13 @@ WNAMES = ["w1", "b1", "g1", "o1", "w2", "b2", "g2", "o2",
 _WSHAPES = {"w1": (3, 128, 256), "w2": (3, 128, 128), "w3": (3, 64, 128), "w4": (3, 64, 64), "w5": (3, 1, 64)}
 
 # launches of the CUDA kernels, keyed "fwd_<dtype>" / "bwd_<dtype>"; counted
-# where they are launched (the backward's recompute is part of its launch)
+# where they are launched
 LAUNCHES: collections.Counter = collections.Counter()
 
-# csrc/decoder_train_common.cuh `enum Ptr`, in order
-_PLANES = ["P_A1", "P_H1", "P_A2", "P_H2", "P_A3", "P_H3", "P_A4", "P_H4", "OUT", "MEAN", "VAR"]
-PTR_NAMES = ["X", *(n.upper() for n in WNAMES), *_PLANES, "DOUT", "DX", *("G" + n.upper() for n in WNAMES)]
+# csrc/decoder_train_common.cuh `enum Ptr`, in order: the planes A4f fills and
+# A4b reads
+PLANES = ["P_A1", "P_H1", "P_A2", "P_H2", "P_A3", "P_H3", "P_A4", "P_H4", "OUT", "MEAN", "VAR"]
+PTR_NAMES = ["X", *(n.upper() for n in WNAMES), *PLANES, "DOUT", "DX", *("G" + n.upper() for n in WNAMES)]
 
 
 # --------------------------------------------------------------- weight packing
@@ -209,18 +220,35 @@ def _stream(dev) -> int:
         return torch.cuda.current_stream(dev).cuda_stream
 
 
-def _planes(G: int, nb: int, sd, dev) -> dict:
-    """The forward's planes and outputs: a* pre-BN float32, h1..h3 in the
-    storage dtype, h4 float32; mean and var zero-filled (padded channels)."""
+def _plane_specs(G: int, nb: int, sd) -> dict:
+    """{name: (shape, dtype)} of the forward's planes and outputs: a* pre-BN
+    float32, h1..h3 in the storage dtype, h4 float32, out [G, nb, 512], and
+    the moments [G, 4, 128] float32."""
     N = G * nb
     f32 = torch.float32
-    shapes = {"P_A1": ((N, 128, 256), f32), "P_H1": ((N, 128, 256), sd), "P_A2": ((N, 128, 256), f32),
-              "P_H2": ((N, 128, 256), sd), "P_A3": ((N, 64, SEQ), f32), "P_H3": ((N, 64, SEQ), sd),
-              "P_A4": ((N, 64, SEQ), f32), "P_H4": ((N, 64, SEQ), f32), "OUT": ((G, nb, SEQ), f32)}
-    t = {n: torch.empty(s, dtype=d, device=dev) for n, (s, d) in shapes.items()}
-    t["MEAN"] = torch.zeros(G, 4, FEAT, dtype=f32, device=dev)
-    t["VAR"] = torch.zeros(G, 4, FEAT, dtype=f32, device=dev)
-    return t
+    return {"P_A1": ((N, 128, 256), f32), "P_H1": ((N, 128, 256), sd), "P_A2": ((N, 128, 256), f32),
+            "P_H2": ((N, 128, 256), sd), "P_A3": ((N, 64, SEQ), f32), "P_H3": ((N, 64, SEQ), sd),
+            "P_A4": ((N, 64, SEQ), f32), "P_H4": ((N, 64, SEQ), f32), "OUT": ((G, nb, SEQ), f32),
+            "MEAN": ((G, 4, FEAT), f32), "VAR": ((G, 4, FEAT), f32)}
+
+
+def _planes(G: int, nb: int, sd, dev) -> dict:
+    """Empty planes for A4f to fill; mean and var zero-filled (padded
+    channels)."""
+    return {n: (torch.zeros if n in ("MEAN", "VAR") else torch.empty)(s, dtype=d, device=dev)
+            for n, (s, d) in _plane_specs(G, nb, sd).items()}
+
+
+def _check_planes(planes: dict, x):
+    """The planes A4b reads: every name of PLANES, contiguous, with the shape
+    and dtype A4f gives them for x, on x's device."""
+    if set(planes) != set(PLANES):
+        raise ValueError(f"planes must hold {PLANES}, got {sorted(planes)}")
+    for k, (shape, want) in _plane_specs(x.shape[0], x.shape[2] // FEAT, x.dtype).items():
+        v = planes[k]
+        if tuple(v.shape) != shape or v.dtype != want or v.device != x.device or not v.is_contiguous():
+            raise ValueError(f"planes[{k!r}] must be {list(shape)} {want} contiguous on {x.device}, got "
+                             f"{list(v.shape)} {v.dtype} on {v.device}")
 
 
 def _inputs(x, weights) -> dict:
@@ -231,26 +259,28 @@ def _inputs(x, weights) -> dict:
 
 @torch.library.custom_op("ecgpan_torch::decoder_train_fwd", mutates_args=())
 def _decoder_train_fwd_op(x: torch.Tensor, weights: list[torch.Tensor]) -> list[torch.Tensor]:
-    """Kernel A4f. `weights` in WNAMES order; returns [out, mean, var]."""
+    """Kernel A4f. `weights` in WNAMES order; returns the planes in PLANES
+    order (the last three: out, mean, var)."""
     t = _inputs(x, weights)
     G, nb = x.shape[0], x.shape[2] // FEAT
     lib, fn = _lib("fwd", x.dtype)
-    t.update(_planes(G, nb, x.dtype, x.device))
-    rc = fn(_ptr_table(t), G, nb, _stream(x.device))
+    planes = _planes(G, nb, x.dtype, x.device)
+    rc = fn(_ptr_table({**t, **planes}), G, nb, _stream(x.device))
     if rc != 0:
         _raise(lib, "fwd", rc)
-    return [t["OUT"], t["MEAN"], t["VAR"]]
+    return list(planes.values())
 
 
 @torch.library.custom_op("ecgpan_torch::decoder_train_bwd", mutates_args=())
-def _decoder_train_bwd_op(x: torch.Tensor, weights: list[torch.Tensor], dout: torch.Tensor) -> list[torch.Tensor]:
-    """Kernel A4b. Returns [dx [G, 256, nb*128], *gradients in WNAMES order],
-    float32."""
+def _decoder_train_bwd_op(x: torch.Tensor, weights: list[torch.Tensor], dout: torch.Tensor,
+                          planes: list[torch.Tensor]) -> list[torch.Tensor]:
+    """Kernel A4b on A4f's planes (PLANES order). Returns [dx [G, 256,
+    nb*128], *gradients in WNAMES order], float32."""
     t = _inputs(x, weights)
+    t.update(zip(PLANES, planes))
     G, nb = x.shape[0], x.shape[2] // FEAT
     dev = x.device
     lib, fn = _lib("bwd", x.dtype)
-    t.update(_planes(G, nb, x.dtype, dev))  # scratch the recompute fills
     t["DOUT"] = dout.float().contiguous()
     t["DX"] = torch.empty(x.shape, dtype=torch.float32, device=dev)
     grads = {"G" + n.upper(): torch.empty(v.shape, dtype=torch.float32, device=dev)
@@ -266,42 +296,50 @@ def _key(sd) -> str:
     return str(sd).removeprefix("torch.")
 
 
-def forward_cuda(w: dict, x):
-    """Launch A4f on CUDA tensors: (out, mean, var)."""
+def forward_cuda(w: dict, x) -> dict:
+    """Launch A4f on CUDA tensors: {name: plane} in PLANES order, out, mean
+    and var last."""
+    _check(w, x)
     if not x.is_cuda:
         raise ValueError("forward_cuda needs CUDA tensors")
-    _check(w, x)
-    out, mean, var = _decoder_train_fwd_op(x, [w[k] for k in WNAMES])
+    planes = dict(zip(PLANES, _decoder_train_fwd_op(x, [w[k] for k in WNAMES])))
     LAUNCHES[f"fwd_{_key(x.dtype)}"] += 1
-    return out, mean, var
+    return planes
 
 
-def backward_cuda(w: dict, x, dout) -> list:
-    """Launch A4b on CUDA tensors: [dx, *gradients in WNAMES order], float32."""
+def backward_cuda(w: dict, x, dout, planes: dict | None = None) -> list:
+    """Launch A4b on CUDA tensors: [dx, *gradients in WNAMES order], float32.
+    `planes` are A4f's (forward_cuda) for these (w, x); without them A4f is
+    launched first to fill them."""
+    _check(w, x)
+    if planes is not None:
+        _check_planes(planes, x)
     if not x.is_cuda:
         raise ValueError("backward_cuda needs CUDA tensors")
-    _check(w, x)
-    out = _decoder_train_bwd_op(x, [w[k] for k in WNAMES], dout)
+    if planes is None:
+        planes = forward_cuda(w, x)
+    out = _decoder_train_bwd_op(x, [w[k] for k in WNAMES], dout, [planes[k] for k in PLANES])
     LAUNCHES[f"bwd_{_key(x.dtype)}"] += 1
     return out
 
 
 class TrainDecodeGroups(torch.autograd.Function):
-    """forward: kernel A4f; backward: kernel A4b, which recomputes the forward
-    from (x, weights). Arguments: (x, *weights in WNAMES order). The moments
-    are marked non-differentiable."""
+    """forward: kernel A4f, whose planes are kept; backward: kernel A4b on
+    them. Arguments: (x, *weights in WNAMES order). The moments are marked
+    non-differentiable."""
 
     @staticmethod
     def forward(ctx, x, *weights):
-        out, mean, var = forward_cuda(dict(zip(WNAMES, weights)), x)
-        ctx.save_for_backward(x, *weights)
-        ctx.mark_non_differentiable(mean, var)
-        return out, mean, var
+        planes = forward_cuda(dict(zip(WNAMES, weights)), x)
+        ctx.save_for_backward(x, *weights, *planes.values())
+        ctx.mark_non_differentiable(planes["MEAN"], planes["VAR"])
+        return planes["OUT"], planes["MEAN"], planes["VAR"]
 
     @staticmethod
     def backward(ctx, dout, _dmean, _dvar):
-        x, *weights = ctx.saved_tensors
-        dx, *dw = backward_cuda(dict(zip(WNAMES, weights)), x, dout)
+        x, *rest = ctx.saved_tensors
+        weights, kept = rest[:len(WNAMES)], rest[len(WNAMES):]
+        dx, *dw = backward_cuda(dict(zip(WNAMES, weights)), x, dout, dict(zip(PLANES, kept)))
         return (dx.to(x.dtype), *(g.to(v.dtype) for g, v in zip(dw, weights)))
 
 

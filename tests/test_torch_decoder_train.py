@@ -241,3 +241,114 @@ def test_cuda_kernels_match_plain(setup, dtype):
         # a whole term of a per-channel sum, so the bar is on the energy
         l2 = float((a - b).norm() / b.norm().clamp_min(1e-12))
         assert l2 <= (5e-3 if f32 else 5e-2), f"{k}: L2 relative {l2:.2e}"
+
+
+def test_backward_cuda_checks_planes(setup):
+    """The planes argument of backward_cuda is checked before any launch: a
+    missing plane, a wrong shape, dtype or device, or a non-contiguous plane
+    raises ValueError; right planes reach the CUDA check."""
+    _, _, stacked, tp, _ = setup
+    w = dt.pack_train_weights(tp)
+    x = torch.tensor(stacked).reshape(3, NB, 256, 128).permute(0, 2, 1, 3).reshape(3, 256, NB * 128)
+    dout = torch.zeros(3, NB, 512)
+    planes = dt._planes(3, NB, torch.float32, x.device)
+    assert list(planes) == dt.PLANES
+    launches = sum(dt.LAUNCHES.values())
+    bad = {
+        "missing": {k: v for k, v in planes.items() if k != "P_H4"},
+        "shape": {**planes, "P_A3": torch.zeros(3 * NB, 64, 256)},
+        "dtype": {**planes, "P_H1": planes["P_H1"].to(torch.bfloat16)},
+        "device": {**planes, "OUT": torch.empty(3, NB, 512, device="meta")},
+        "contiguous": {**planes, "P_A1": planes["P_A1"].transpose(1, 2).contiguous().transpose(1, 2)},
+    }
+    for p in bad.values():
+        with pytest.raises(ValueError, match="planes"):
+            dt.backward_cuda(w, x, dout, p)
+    # bfloat16 storage wants h1..h3 in bfloat16
+    w16, x16 = dt.pack_train_weights(tp, dtype=torch.bfloat16), x.to(torch.bfloat16)
+    with pytest.raises(ValueError, match="planes\\['P_H1'\\]"):
+        dt.backward_cuda(w16, x16, dout, planes)
+    with pytest.raises(ValueError, match="CUDA"):
+        dt.backward_cuda(w, x, dout, planes)
+    with pytest.raises(ValueError, match="CUDA"):
+        dt.backward_cuda(w16, x16, dout, dt._planes(3, NB, torch.bfloat16, x.device))
+    assert sum(dt.LAUNCHES.values()) == launches
+
+
+def test_compare_builds_a4_dump_keys():
+    """compare_builds' A4 dump holds out, mean, var, dx and the 18 parameter
+    gradients; on the CPU the same autograd path runs the plain version."""
+    from electrocardio_panorama_tpu_torch import compare_builds as CB
+
+    d = CB.a4_dump(dt, "float32", torch.device("cpu"), nb=2)
+    assert set(d) == {"A4 out", "A4 mean", "A4 var", "A4 grad dx", *(f"A4 grad {k}" for k in dt.WNAMES)}
+    assert len(d) == 22 and all(k.startswith(CB.FAMILIES["A4"]) for k in d)
+    assert not any(k.startswith(CB.FAMILIES["A2/A3"]) for k in d)
+    assert d["A4 out"].shape == (3, 2, 512) and d["A4 grad dx"].shape == (3, 256, 256)
+    assert all(bool(torch.isfinite(v.float()).all()) for v in d.values())
+    # the inputs come from a seed: a second dump is the same
+    d2 = CB.a4_dump(dt, "float32", torch.device("cpu"), nb=2)
+    assert all(torch.equal(d[k], d2[k]) for k in d)
+
+
+def _cuda_inputs(tp, dtype, nb, seed=11):
+    dev, sd = torch.device("cuda"), getattr(torch, dtype)
+    rng = np.random.default_rng(seed)
+    w = {k: v.to(dev) for k, v in dt.pack_train_weights(tp, dtype=sd).items()}
+    x = torch.tensor(rng.normal(0, 0.5, (3, 256, nb * 128)).astype(np.float32), device=dev).to(sd)
+    dout = torch.tensor(rng.normal(0, 1, (3, nb, 512)).astype(np.float32), device=dev)
+    return w, x, dout
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_backward_on_kept_planes_is_bitwise(setup, dtype):
+    """A4b on A4f's kept planes equals backward_cuda(w, x, dout) with its own
+    A4f launch, and a repeat launch, bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    w, x, dout = _cuda_inputs(setup[3], dtype, nb=32)
+    planes = dt.forward_cuda(w, x)
+    kept = dt.backward_cuda(w, x, dout, planes)
+    again = dt.backward_cuda(w, x, dout, planes)
+    own = dt.backward_cuda(w, x, dout)
+    torch.cuda.synchronize()
+    assert len(kept) == 19
+    for i, name in enumerate(["x", *dt.WNAMES]):
+        assert torch.equal(kept[i], own[i]), name
+        assert torch.equal(kept[i], again[i]), name
+        assert bool(torch.isfinite(kept[i]).all()), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nb", [32, 5])
+def test_cuda_bf16_backward_matches_plain(setup, nb):
+    """bfloat16 A4b (tensor cores) against the plain version at the PERF.md
+    section 2 bars: output max abs error 2e-3; gradients corr > 0.995 and L2
+    relative 5e-2 (the conv biases before a BN: rounding noise, |g| < 1e-3)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    from electrocardio_panorama_tpu_torch.ops import full_f32
+
+    w, x0, dout = _cuda_inputs(setup[3], "bfloat16", nb)
+
+    def run(plain):
+        ws = {k: v.clone().requires_grad_(True) for k, v in w.items()}
+        x = x0.clone().requires_grad_(True)
+        with full_f32():
+            out, _, _ = dt.train_decode_groups(ws, x, plain=plain)
+            out.backward(dout)
+        return out.detach(), {"x": x.grad, **{k: v.grad for k, v in ws.items()}}
+
+    (ref_out, ref), (out, got) = run(True), run(False)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, ref_out, rtol=0, atol=2e-3)
+    for k, b in ref.items():
+        a, b = got[k].float(), b.float()
+        assert bool(torch.isfinite(a).all()), k
+        if k in ("b1", "b2", "b3", "b4"):
+            assert float(a.abs().max()) < 1e-3, k
+            continue
+        l2 = float((a - b).norm() / b.norm().clamp_min(1e-12))
+        corr = float(torch.corrcoef(torch.stack([a.flatten(), b.flatten()]))[0, 1]) if a.numel() > 1 else 1.0
+        assert l2 <= 5e-2 and corr > 0.995, f"{k}: L2 relative {l2:.2e}, corr {corr:.6f}"
