@@ -14,7 +14,9 @@ result line:
                encoder_ckpt off/tower/full and a repeat launch; A4f/A4b (the
                fused train decoder) at 3 groups of 32 for the output, the
                batch moments, dx and all 18 parameter gradients, bitwise
-               across a repeat launch; float32 and bfloat16, timed with CUDA
+               across a repeat launch, float32 A4b's device ms by kernel and
+               its FMA engine's TFLOP/s, and both float32 sides' distance
+               from a float64 pass; float32 and bfloat16, timed with CUDA
                events;
   4. render  — the port's render entry point (`render.main`) on a generated
                synthetic corpus with a seeded random checkpoint, over the
@@ -104,6 +106,7 @@ ENC_F32_E2E_L2, ENC_F32_E2E_CORR = 5e-3, 0.9999
 # bfloat16: output max abs error 2e-3 and corr > 0.9999, moments within 1e-3,
 # gradients at the encoder's bfloat16 bars.
 DEC_F32_GRAD_L2, DEC_F32_GRAD_CORR, DEC_F32_OPEN_L2, DEC_NOISE = 5e-3, 0.9999, 2e-4, 1e-3
+DEC_NOISE_KEYS = ("b1", "b2", "b3", "b4")
 DEC_BF16_FWD, DEC_BF16_FWD_CORR, DEC_BF16_STAT = 2e-3, 0.9999, 1e-3
 # train phase, a run with kernels against the run without them on the same
 # batches and masks: per-step loss relative difference; the params after one
@@ -567,6 +570,70 @@ def forms_kernels(card: str, dev, params, latent, folded, rng) -> dict:
     return stats
 
 
+def decoder_float64_distances(card, a4, w, x, dout, runs: dict, label: str) -> None:
+    """Print how far each float32 run in `runs` ({name: (out dict, grads)},
+    the kernels and the plain version) lies from a float64 pass of the plain
+    version on the same inputs: out's largest absolute difference and the
+    gradients' worst L2 relative distance (the conv biases before a BN,
+    rounding noise on every side, left out)."""
+    from electrocardio_panorama_tpu_torch.ops import full_f32
+
+    ws = {k: v.clone().requires_grad_(True) for k, v in w.items()}
+    xg = x.clone().requires_grad_(True)
+    with full_f32():
+        out, _, _ = a4.train_decode_groups_plain(ws, xg, float64=True)
+        out.backward(dout.double())
+    truth_out, truth = out.detach(), {"x": xg.grad, **{k: v.grad for k, v in ws.items()}}
+    parts = []
+    for name, (fwd, grads) in runs.items():
+        err = float((fwd["out"].double() - truth_out).abs().max())
+        l2, worst = max((grad_errors(grads[k], truth[k])[1], k) for k in truth if k not in DEC_NOISE_KEYS)
+        parts.append(f"{name}: out max abs {err:.3e}, worst grad {worst} L2 {l2:.3e}")
+    log("kernels", f"decoder_train f32 distance from a float64 plain pass (G=3, nb={B}, {label}): "
+                   + "; ".join(parts) + f" on {card}")
+
+
+def decoder_fma_engine(card: str, a4, w, x, dout, planes) -> None:
+    """Print float32 A4b's device ms by kernel (torch.profiler), the FMA
+    engine's TFLOP/s for the data gradients and the weight gradients apart,
+    its dynamic shared memory, blocks per SM and the weight gradients'
+    grids against two waves of the card's SMs."""
+    from electrocardio_panorama_tpu_torch.ops.kernels import build
+    from electrocardio_panorama_tpu_torch.utils.profiling import device_window
+
+    N = 3 * B
+    split = device_window(lambda: [a4.backward_cuda(w, x, dout, planes) for _ in range(5)], 5, top=16)
+    by = split["by_kernel"]
+    flops = 2 * (CONV1_MACS + TAIL_MACS - 64 * 3 * 512) * N  # conv1..conv4, once each way
+    rates = {name: flops / (1e9 * sum(v for k, v in by.items() if name in k))
+             for name in ("dgrad_kernel_fma", "dw_kernel_fma") if any(name in k for k in by)}
+    log("kernels", "A4b f32 device ms per launch by kernel (torch.profiler): "
+                   + "; ".join(f"{k} {v:.3f}" for k, v in by.items())
+                   + f"; all kernels {split['kernel_sum_ms']:.3f}, busy {split['busy_ms']:.3f}; FMA engine "
+                   + ", ".join(f"{k} {v:.1f} TFLOP/s" for k, v in rates.items()) + f" on {card}")
+    lib = build.load("decoder_train_bwd")
+    lib.decoder_train_bwd_fma_dw_blocks.argtypes = [ctypes.c_int] * 4
+    lib.decoder_train_bwd_fma_blocks_per_sm.argtypes = [ctypes.c_int]
+    per_sm = {name: lib.decoder_train_bwd_fma_blocks_per_sm(dw) for name, dw in (("dgrad", 0), ("dw", 1))}
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    grids = {f"conv{i}": lib.decoder_train_bwd_fma_dw_blocks(co, ci, t, N)
+             for i, (co, ci, t) in enumerate(((128, 256, 256), (128, 128, 256), (64, 128, 512), (64, 64, 512)), 1)}
+    waves = {k: v / (sms * max(per_sm["dw"], 1)) for k, v in grids.items()}
+    ws_mb = {}
+    for suffix in ("f32", "bf16"):
+        fn = getattr(lib, f"decoder_train_bwd_workspace_floats_{suffix}")
+        fn.restype, fn.argtypes = ctypes.c_longlong, [ctypes.c_int, ctypes.c_int]
+        ws_mb[suffix] = fn(3, B) * 4 / 1e6
+    log("kernels", f"FMA engine (decoder_train_fma.cuh): dw_kernel_fma {lib.decoder_train_bwd_fma_dw_smem_bytes()} "
+                   f"bytes dynamic shared memory; blocks per SM dgrad_kernel_fma {per_sm['dgrad']}, dw_kernel_fma "
+                   f"{per_sm['dw']} of {sms} SMs; dw_kernel_fma blocks "
+                   + ", ".join(f"{k} {v} ({waves[k]:.2f} waves)" for k, v in grids.items())
+                   + f"; A4b workspace at 3 groups of {B}: f32 {ws_mb['f32']:.2f} MB, bf16 {ws_mb['bf16']:.2f} MB")
+    if min(waves.values()) < 2 or min(per_sm.values()) < 1:
+        log("kernels", "FAIL dw_kernel_fma fills fewer than two waves of the card, or a kernel fits no SM")
+        raise SystemExit(1)
+
+
 def train_decoder_kernels(card: str, dev) -> dict:
     """A4f/A4b against the plain version at 3 groups of 32 samples in float32
     and bfloat16: the output, the batch moments, dx and all 18 parameter
@@ -587,7 +654,6 @@ def train_decoder_kernels(card: str, dev) -> dict:
             params[f"{key}.{leaf}"] = v + torch.tensor(rng.normal(0, spread, v.shape), dtype=torch.float32, device=dev)
     x32 = torch.tensor(rng.normal(0, 0.5, (G, 256, nb * 128)), dtype=torch.float32, device=dev)
     dout = torch.tensor(rng.normal(0, 1, (G, nb, 512)), dtype=torch.float32, device=dev)
-    noise_keys = ("b1", "b2", "b3", "b4")
     stats = {}
 
     def run(w, x0, plain):
@@ -604,7 +670,7 @@ def train_decoder_kernels(card: str, dev) -> dict:
         for k, r in ref.items():
             g, r = got[k].float(), r.float()
             err = max(err, float((g - r).abs().max()))
-            if k in noise_keys:
+            if k in DEC_NOISE_KEYS:
                 ok = ok and float(g.abs().max()) <= DEC_NOISE and float(r.abs().max()) <= DEC_NOISE
                 continue
             _, l2, corr = grad_errors(g, r)
@@ -637,7 +703,13 @@ def train_decoder_kernels(card: str, dev) -> dict:
             o_ok, _, o_worst = grads_ok(open_grads, open_ref_grads, DEC_F32_OPEN_L2, DEC_F32_GRAD_CORR)
             o_ok = o_ok and float((open_fwd["out"] - open_ref["out"]).abs().max()) <= F32_TOL
             ok = ok and g_ok and o_ok
-            extra = f"; every relu open: worst grad {o_worst[2]} L2 {o_worst[0]:.2e}"
+            extra = (f"; every relu open: worst grad {o_worst[2]} L2 {o_worst[0]:.2e}; A4b's convs on the FMA "
+                     f"engine decoder_train_fma.cuh")
+            decoder_float64_distances(card, a4, w, x, dout, {"kernel": (fwd, grads), "plain f32": (ref_fwd, ref_grads)},
+                                      "the model's BN offsets")
+            decoder_float64_distances(card, a4, w_open, x, dout, {"kernel": (open_fwd, open_grads),
+                                                                  "plain f32": (open_ref, open_ref_grads)},
+                                      "every relu open")
         else:
             _, corr = compare(fwd["out"], ref_fwd["out"])
             ok = ok and fwd_err <= DEC_BF16_FWD and corr > DEC_BF16_FWD_CORR and stat_err <= DEC_BF16_STAT
@@ -681,6 +753,8 @@ def train_decoder_kernels(card: str, dev) -> dict:
         log("kernels", f"ok {line} | A4f {fwd_ms:.3f} ms/launch (plain {plain_fwd_ms:.3f} ms, bound {fb:.4f} ms "
                        f"{fby}), A4b on the kept planes {bwd_ms:.3f} ms/launch (plain {plain_bwd_ms:.3f} ms, "
                        f"bound {bb:.4f} ms {bby}), A4f + A4b {pair_ms:.3f} ms on {card}")
+        if dt == torch.float32:
+            decoder_fma_engine(card, a4, w, x, dout, planes)
     return stats
 
 

@@ -12,7 +12,11 @@ Runs, with this checkout's package and with the package under OTHER_ROOT
     on inputs made here from a seed: out, mean, var, dx and the 18 parameter
     gradients.
 Prints per dtype and kernel family one JSON line: how many tensors are
-bitwise equal, which differ, and their largest difference.
+bitwise equal, which differ, and their largest difference; which tensors
+this checkout's kernels are meant to change against the other's
+(`EXPECTED_TO_DIFFER`), and whether exactly those differ. In float32 it then
+prints how far each checkout's A4 out and gradients lie from a float64 pass
+of this checkout's plain version on the same inputs.
 
 With --time it then times A4f and A4b at 3 groups of 32 in each checkout,
 in turns (other, this, this, other), each in a process of its own, and
@@ -39,6 +43,15 @@ import torch
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # the kernel families of a dump, by key prefix
 FAMILIES = {"A2/A3": ("plane ", "grad "), "A4": ("A4 ",)}
+# (dtype, family) -> the tensors that this checkout's kernels change against
+# the parent's; every other tensor must stay bitwise equal. float32 A4b sums
+# its conv data and weight gradients and its conv biases on the FMA engine
+# (csrc/decoder_train_fma.cuh) in another order than the SIMT kernels did:
+# conv4's bias and weight gradients and everything below them move. A4f's out,
+# mean and var, and the conv5 and BN4 gradients (SIMT stages ahead of conv4)
+# stay.
+_A4_F32_MOVED = ["dx", "w1", "b1", "g1", "o1", "w2", "b2", "g2", "o2", "w3", "b3", "g3", "o3", "w4", "b4"]
+EXPECTED_TO_DIFFER = {("float32", "A4"): [f"A4 grad {k}" for k in _A4_F32_MOVED]}
 
 
 def a4_inputs(dtype: str, dev, nb: int = 32):
@@ -72,6 +85,32 @@ def a4_dump(a4, dtype: str, dev, nb: int = 32) -> dict:
             **{f"A4 grad {k}": v.grad for k, v in w.items()}}
 
 
+def a4_float64_truth(dev, nb: int = 32) -> dict:
+    """out, dx and the 18 parameter gradients of `a4_dump`'s float32 run,
+    computed by this checkout's plain version in float64."""
+    sys.path.insert(0, HERE)
+    from electrocardio_panorama_tpu_torch.ops.kernels import decoder_train as a4
+
+    w, x, dout = a4_inputs("float32", dev, nb)
+    w = {k: v.requires_grad_(True) for k, v in w.items()}
+    x.requires_grad_(True)
+    out, _, _ = a4.train_decode_groups_plain(w, x, float64=True)
+    out.backward(dout.double())
+    return {"A4 out": out.detach(), "A4 grad dx": x.grad, **{f"A4 grad {k}": v.grad for k, v in w.items()}}
+
+
+def float64_distance(d: dict, truth: dict) -> dict:
+    """A float32 A4 dump against `a4_float64_truth`: out's largest absolute
+    difference, and the gradients' worst L2 relative distance (the conv
+    biases before a BN, rounding noise on every side, left out)."""
+    noise = {f"A4 grad b{i}" for i in range(1, 5)}
+    l2 = {k: float((d[k].double() - truth[k].double()).norm() / truth[k].double().norm().clamp_min(1e-30))
+          for k in truth if k.startswith("A4 grad") and k not in noise}
+    worst = max(l2, key=l2.get)
+    return {"out_max_abs": float((d["A4 out"].double() - truth["A4 out"].double()).abs().max()),
+            "worst_grad": worst, "worst_grad_l2": l2[worst]}
+
+
 def dump(root: str, dtype: str, out: str) -> None:
     """Save every forward plane and gradient of one A2 + A3 run and one
     A4f + A4b run with the package under `root` to `out`."""
@@ -102,6 +141,8 @@ def a4_times(root: str, dtypes: list[str]) -> None:
     from electrocardio_panorama_tpu_torch.profile_encoder import cuda_ms
     from electrocardio_panorama_tpu_torch.utils.profiling import device_window
 
+    if not os.path.abspath(a4.__file__).startswith(os.path.abspath(root) + os.sep):
+        raise SystemExit(f"imported {a4.__file__}, not the package under {root}")
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True).stdout.strip()
     kept = "planes" in inspect.signature(a4.backward_cuda).parameters
@@ -137,6 +178,13 @@ def compare(a: dict, b: dict) -> dict:
             "max_abs_diff": max((float((a[k].double() - b[k].double()).abs().max()) for k in differ), default=0.0)}
 
 
+def against_expectation(result: dict, dtype: str, family: str) -> dict:
+    """`result` of `compare` with the tensors expected to differ for this
+    (dtype, family) and whether exactly those differ."""
+    expected = EXPECTED_TO_DIFFER.get((dtype, family), [])
+    return {**result, "expected_to_differ": expected, "as_expected": sorted(result["differ"]) == sorted(expected)}
+
+
 def main(argv=None) -> None:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("other", help="root of the other checkout (holds electrocardio_panorama_tpu_torch/)")
@@ -162,8 +210,12 @@ def main(argv=None) -> None:
                 dumps[label] = torch.load(out)
             for family, prefixes in FAMILIES.items():
                 a, b = ({k: v for k, v in d.items() if k.startswith(prefixes)} for d in dumps.values())
-                print(json.dumps({"dtype": dtype, "kernels": family, "this": HERE,
-                                  "other": os.path.abspath(args.other), **compare(a, b)}), flush=True)
+                print(json.dumps({"dtype": dtype, "kernels": family, "this": HERE, "other": os.path.abspath(args.other),
+                                  **against_expectation(compare(a, b), dtype, family)}), flush=True)
+            if dtype == "float32":
+                truth = {k: v.cpu() for k, v in a4_float64_truth(torch.device("cuda")).items()}
+                print(json.dumps({"dtype": dtype, "kernels": "A4", "distance_from_float64": {
+                    label: float64_distance(d, truth) for label, d in dumps.items()}}), flush=True)
     if args.time:
         other = os.path.abspath(args.other)
         for root in (other, HERE, HERE, other):

@@ -24,22 +24,18 @@
 // each, and each weight gradient as a GEMM over (sample, time) split into a
 // fixed number of position ranges, per-block partials, and a second kernel
 // that adds the partials in order. No atomics, so a repeat launch gives the
-// same bits. In float32 the data gradients go through the forward's conv
-// kernel with transposed, flipped weights, and the weight gradients through
-// dw_kernel below; in bfloat16 both run on the tensor-core engine of
-// decoder_train_tc.cuh.
+// same bits. The conv data and weight gradients, and the conv biases'
+// gradients with them, run on the engine of the storage type: the FMA engine
+// of decoder_train_fma.cuh in float32, the tensor-core engine of
+// decoder_train_tc.cuh in bfloat16; the stages here are shared by both.
 
+#include <initializer_list>
 #include <type_traits>
 
 #include "decoder_train_common.cuh"
 
 namespace dtr {
 namespace {
-
-constexpr int DW_P = 32;         // positions staged per step in the weight-gradient GEMM
-constexpr int DW_T = 64;         // output channels / reduction rows per block
-constexpr int MAX_SPLIT = 16;    // position ranges per weight gradient
-constexpr int TARGET_BLOCKS = 264;
 
 __global__ void sigmoid_bwd_kernel(const float* __restrict__ dout, const float* __restrict__ out,
                                    float* __restrict__ dz, long long n) {
@@ -162,17 +158,6 @@ __global__ void bn_bwd_kernel(const float* __restrict__ a, const float* __restri
   da[e] = (dy * ga - m1 - xhat * m2) * inv;
 }
 
-// out[c] = sum over (n, t) of a[n, c, t]: a bias gradient (one block per channel).
-__global__ void colsum_kernel(const float* __restrict__ a, float* __restrict__ out, int N, int C, int T) {
-  __shared__ float red[256];
-  const int c = blockIdx.x;
-  float v = 0.f;
-  for (int e = threadIdx.x; e < N * T; e += blockDim.x)
-    v += a[((size_t)(e / T) * C + c) * T + e % T];
-  const float s = block_sum(v, red);
-  if (threadIdx.x == 0) out[c] = s;
-}
-
 // The adjoint of up2 per row: du [rows = samples*C, 2T] -> the [G, nb, C, T]
 // tensor `out` with strides (sG, sB, sC), time contiguous.
 __global__ void up2_adjoint_kernel(const float* __restrict__ du, float* __restrict__ out, long long total,
@@ -186,80 +171,6 @@ __global__ void up2_adjoint_kernel(const float* __restrict__ du, float* __restri
   const float v = 0.75f * (d[2 * t] + d[2 * t + 1]) + 0.25f * (t + 1 < T ? d[2 * t + 2] : d[2 * T - 1])
                   + 0.25f * (t > 0 ? d[2 * t - 1] : d[0]);
   out[(n / nb) * sG + (n % nb) * sB + c * sC + t] = v;
-}
-
-// Weight-gradient GEMM: for output channel o and row r = (i, k),
-// part[z][o][r] = sum over positions p = n*T + t in range z of
-//   round_s(dy[n, o, t]) * input(n, i, t + k - 1),
-// input as the forward conv saw it (conv_input; zero outside [0, T)).
-template <typename S>
-struct DwArgs {
-  const float* dy;
-  View<S> x;
-  int Cin, Cout, T, N, per;
-  float* part;
-};
-
-// grid: (Cin*3 / DW_T, Cout / DW_T, ranges)
-template <typename S, int UP>
-__global__ void __launch_bounds__(THREADS) dw_kernel(DwArgs<S> a) {
-  __shared__ float dys[DW_P][DW_T + 1];
-  __shared__ float xs[DW_P][DW_T + 1];
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const int r0 = blockIdx.x * DW_T;
-  const int oc0 = blockIdx.y * DW_T;
-  const int R = a.Cin * 3;
-  const int P = a.N * a.T;
-  const int lo = blockIdx.z * a.per, hi = min(P, lo + a.per);
-  float acc[4][4];
-#pragma unroll
-  for (int j = 0; j < 4; ++j)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) acc[j][i] = 0.f;
-
-  for (int q0 = lo; q0 < hi; q0 += DW_P) {
-    __syncthreads();
-    for (int e = tid; e < DW_P * DW_T; e += THREADS) {
-      const int pp = e % DW_P, cc = e / DW_P;
-      const int p = q0 + pp;
-      float dv = 0.f, xv = 0.f;
-      if (p < hi) {
-        const int n = p / a.T, t = p - n * a.T;
-        dv = round_s<S>(a.dy[((size_t)n * a.Cout + oc0 + cc) * a.T + t]);
-        const int r = r0 + cc;
-        if (r < R) {
-          const int i = r / 3, k = r - 3 * i;
-          const int ti = t + k - 1;
-          if (ti >= 0 && ti < a.T) xv = conv_input<S, S, UP>(a.x, n, i, ti, a.T);
-        }
-      }
-      dys[pp][cc] = dv;
-      xs[pp][cc] = xv;
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int pp = 0; pp < DW_P; ++pp) {
-      float dv[4], xv[4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) dv[j] = dys[pp][ty + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) xv[i] = xs[pp][tx + 16 * i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) acc[j][i] = fmaf(dv[j], xv[i], acc[j][i]);
-    }
-  }
-  float* part = a.part + (size_t)blockIdx.z * a.Cout * R;
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int oc = oc0 + ty + 16 * j;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = r0 + tx + 16 * i;
-      if (r < R) part[(size_t)oc * R + r] = acc[j][i];
-    }
-  }
 }
 
 // Adds the ranges' partials in order and writes the gradient tap-major:
@@ -277,72 +188,94 @@ __global__ void dw_reduce_kernel(const float* __restrict__ part, int ranges, int
   out[((size_t)k * Cout + o) * Cin + i] = s;
 }
 
-template <typename S, int UP>
-int weight_grad(const float* dy, const View<S>& x, int Cin, int Cout, int T, int N, void* out, float* part,
-                cudaStream_t st) {
-  DwArgs<S> a;
-  a.dy = dy; a.x = x; a.Cin = Cin; a.Cout = Cout; a.T = T; a.N = N; a.part = part;
-  const int R = Cin * 3, P = N * T;
-  const int tiles = (R / DW_T) * (Cout / DW_T);
-  int ranges = blocks_for(TARGET_BLOCKS, tiles);
-  ranges = ranges < MAX_SPLIT ? ranges : MAX_SPLIT;
-  const int max_ranges = blocks_for(P, DW_P);
-  ranges = ranges < max_ranges ? ranges : max_ranges;
-  a.per = blocks_for(blocks_for(P, ranges), DW_P) * DW_P;
-  ranges = blocks_for(P, a.per);
-  dw_kernel<S, UP><<<dim3(R / DW_T, Cout / DW_T, ranges), dim3(THREADS), 0, st>>>(a);
-  DTR_TRY(cudaGetLastError());
-  dw_reduce_kernel<<<dim3(blocks_for((long long)Cout * R, 256)), dim3(256), 0, st>>>(
-      part, ranges, Cout, Cin, static_cast<float*>(out));
-  return (int)cudaGetLastError();
-}
-
-// The data gradient of a forward conv with tap-major weights w [3, Cfo, Cfi]:
-// a conv over dy [N, Cfo, T] with output channel i, rows (o, k') and weight
-// w[2 - k', o, i]. Writes [N, Cfi, T].
-template <typename S>
-int data_grad(const float* dy, const void* w, float* out, int N, int nb, int Cfo, int Cfi, int T,
-              cudaStream_t st) {
-  const S* wf = static_cast<const S*>(w) + 2LL * Cfo * Cfi;
-  conv3_kernel<S, float, 0><<<dim3(N, T / T_T, Cfi / CO_T), dim3(THREADS), 0, st>>>(
-      planes<float>(dy, nb, Cfo, T), wf, -(long long)Cfo * Cfi, 1LL, (long long)Cfi, nullptr, out, Cfo,
-      Cfi, T);
-  return (int)cudaGetLastError();
+// bias[o] = the sum of the partials of rows (phase, o) over ranges and
+// phases: one warp per o, lane l adding ranges l, l + 32, ... in order, then
+// a fixed shuffle tree.
+__global__ void bias_reduce_kernel(const float* __restrict__ part, int ranges, int phases, int Cout,
+                                   float* __restrict__ out) {
+  const int o = blockIdx.x * (blockDim.x / 32) + threadIdx.x / 32, lane = threadIdx.x & 31;
+  if (o >= Cout) return;  // whole warps
+  float s = 0.f;
+  for (int z = lane; z < ranges; z += 32)
+    for (int p = 0; p < phases; ++p) s += part[(z * phases + p) * Cout + o];
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
+  if (lane == 0) out[o] = s;
 }
 
 }  // namespace
 }  // namespace dtr
 
-// the bf16 engine; it reduces its plain weight-gradient partials with
-// dw_reduce_kernel above
+// the engines; they reduce their bias partials with bias_reduce_kernel above,
+// and the bf16 engine its plain weight-gradient partials with dw_reduce_kernel
+#include "decoder_train_fma.cuh"
 #include "decoder_train_tc.cuh"
 
 namespace dtr {
 namespace {
 
 struct Scratch {
-  float *dz, *bufA, *bufB, *bufU, *s1, *s2, *part, *bias_part, *edges;
-  __nv_bfloat16* wp;  // the tensor-core data gradient's packed weights
+  float *dz, *bufA, *bufB, *bufU, *s1, *s2, *part, *bias_part;
+  float* bufX;        // float32: the upsampled conv's input plane, up2(h2) then up2(x)
+  float* edges;       // bfloat16: the upsampled weight gradients' end terms
+  __nv_bfloat16* wp;  // bfloat16: the data gradient's packed weights
 };
 
-// the weight gradients' partials: the larger of the SIMT and the
-// tensor-core engine's need
-long long part_floats(int N) {
-  long long n = (long long)MAX_SPLIT * C1 * C0 * 3;
-  const long long tc[4] = {tc::part_floats(C1, C0, T0, N, 1), tc::part_floats(C1, C1, T1, N, 0),
-                           tc::part_floats(C2, C1, T1, N, 1), tc::part_floats(C2, C2, T2, N, 0)};
-  for (long long v : tc) n = n > v ? n : v;
+long long most(std::initializer_list<long long> v) {
+  long long n = 0;
+  for (long long x : v) n = n > x ? n : x;
   return n;
 }
 
-constexpr int BIAS_PART = tc::MAX_RANGES * 2 * C1;
+// The weight gradients' partials of the storage type's engine, and its bias
+// sums' partials: the most any of conv1..conv4 needs.
+template <typename S>
+long long part_floats(int N) {
+  if (std::is_same<S, __nv_bfloat16>::value)
+    return most({tc::part_floats(C1, C0, T0, N, 1), tc::part_floats(C1, C1, T1, N, 0),
+                 tc::part_floats(C2, C1, T1, N, 1), tc::part_floats(C2, C2, T2, N, 0)});
+  return most({fma::part_floats(C1, C0, T1, N), fma::part_floats(C1, C1, T1, N), fma::part_floats(C2, C1, T2, N),
+               fma::part_floats(C2, C2, T2, N)});
+}
 
-// in order: dz, bufA, bufB, bufU, s1, s2, part, bias_part, edges, wp (every
-// offset a multiple of four floats, for 16-byte loads)
-long long workspace_floats(int G, int nb) {
+template <typename S>
+long long bias_part_floats(int N) {
+  if (std::is_same<S, __nv_bfloat16>::value) return (long long)tc::MAX_RANGES * 2 * C1;
+  return most({fma::bias_part_floats(C1, C0, T1, N), fma::bias_part_floats(C1, C1, T1, N),
+               fma::bias_part_floats(C2, C1, T2, N), fma::bias_part_floats(C2, C2, T2, N)});
+}
+
+// The workspace of one launch, in order: dz, bufA, bufB, bufU, s1, s2, part,
+// bias_part, then bufX (float32) or edges and wp (bfloat16), every piece
+// rounded up to a multiple of four floats (16-byte loads). Returns its size in
+// floats; with a base, also points w's pieces into it.
+template <typename S>
+long long layout(int G, int nb, float* base, Scratch* w) {
+  constexpr bool bf16 = std::is_same<S, __nv_bfloat16>::value;
   const long long N = (long long)G * nb;
-  return N * T2 + 2 * N * C1 * T1 + N * C0 * T1 + 2LL * G * STAT_C + part_floats((int)N) + BIAS_PART +
-         2 * N * (C1 + C0) + 3LL * C0 * C1 / 2;
+  long long at = 0;
+  auto take = [&](long long n) {
+    float* p = base != nullptr ? base + at : nullptr;
+    at += (n + 3) / 4 * 4;
+    return p;
+  };
+  Scratch s{};
+  s.dz = take(N * T2);
+  s.bufA = take(N * C1 * T1);
+  s.bufB = take(N * C1 * T1);
+  s.bufU = take(N * C0 * T1);
+  s.s1 = take((long long)G * STAT_C);
+  s.s2 = take((long long)G * STAT_C);
+  s.part = take(part_floats<S>((int)N));
+  s.bias_part = take(bias_part_floats<S>((int)N));
+  if (bf16) {
+    s.edges = take(2 * N * (C1 + C0));
+    s.wp = reinterpret_cast<__nv_bfloat16*>(take(3LL * C0 * C1 / 2));
+  } else {
+    s.bufX = take(N * C0 * T1);  // = N * C1 * T2
+  }
+  if (w != nullptr) *w = s;
+  return at;
 }
 
 // relu + BN backward of layer `layer`: dh -> da, and the affine gradients.
@@ -366,11 +299,6 @@ int bn_backward(void* const* P, int layer, const void* a, const void* gamma, con
   return (int)cudaGetLastError();
 }
 
-int colsum(const float* a, int N, int C, int T, void* out, cudaStream_t st) {
-  colsum_kernel<<<dim3(C), dim3(256), 0, st>>>(a, static_cast<float*>(out), N, C, T);
-  return (int)cudaGetLastError();
-}
-
 int up2_adjoint(const float* du, float* out, int N, int nb, int C, int T, long long sG, long long sB,
                 long long sC, cudaStream_t st) {
   const long long total = (long long)N * C * T;
@@ -379,41 +307,36 @@ int up2_adjoint(const float* du, float* out, int N, int nb, int C, int T, long l
 }
 
 // A conv's bias and weight gradients (weight_grad_s) and its data gradient
-// (data_grad_s): the tensor-core engine in bf16, the SIMT kernels in float32.
+// (data_grad_s) on the engine of the storage type.
 template <typename S, int UP>
 int weight_grad_s(const float* dy, const View<S>& x, int Cin, int Cout, int T, int N, void* out, void* bias_out,
                   const Scratch& w, cudaStream_t st) {
   if constexpr (std::is_same<S, __nv_bfloat16>::value) {
     return tc::weight_grad(dy, x, Cin, Cout, T, N, UP, out, bias_out, w.part, w.bias_part, w.edges, st);
   } else {
-    DTR_RC(colsum(dy, N, Cout, T, bias_out, st));
-    return weight_grad<S, UP>(dy, x, Cin, Cout, T, N, out, w.part, st);
+    const float* xp = x.p;  // a planes view: [N, Cin, T]
+    if (UP) {
+      DTR_RC(fma::up2_plane(x, w.bufX, N, Cin, T, st));
+      xp = w.bufX;
+    }
+    return fma::weight_grad(dy, xp, Cin, Cout, T, N, out, bias_out, w.part, w.bias_part, st);
   }
 }
 
 template <typename S>
-int data_grad_s(const float* dy, const void* wt, float* out, int N, int nb, int Cfo, int Cfi, int T,
-                const Scratch& w, cudaStream_t st) {
+int data_grad_s(const float* dy, const void* wt, float* out, int N, int Cfo, int Cfi, int T, const Scratch& w,
+                cudaStream_t st) {
   if constexpr (std::is_same<S, __nv_bfloat16>::value)
     return tc::data_grad(dy, wt, out, N, Cfo, Cfi, T, w.wp, st);
   else
-    return data_grad<S>(dy, wt, out, N, nb, Cfo, Cfi, T, st);
+    return fma::data_grad(dy, static_cast<const float*>(wt), out, N, Cfo, Cfi, T, st);
 }
 
 template <typename S>
 int backward(void* const* P, int G, int nb, float* wsp, cudaStream_t st) {
   const int N = G * nb;
   Scratch w;
-  w.dz = wsp;
-  w.bufA = w.dz + (long long)N * T2;
-  w.bufB = w.bufA + (long long)N * C1 * T1;
-  w.bufU = w.bufB + (long long)N * C1 * T1;
-  w.s1 = w.bufU + (long long)N * C0 * T1;
-  w.s2 = w.s1 + G * STAT_C;
-  w.part = w.s2 + G * STAT_C;
-  w.bias_part = w.part + part_floats(N);
-  w.edges = w.bias_part + BIAS_PART;
-  w.wp = reinterpret_cast<__nv_bfloat16*>(w.edges + 2LL * N * (C1 + C0));
+  layout<S>(G, nb, wsp, &w);
 
   // ---- sigmoid and conv5
   sigmoid_bwd_kernel<<<dim3(blocks_for((long long)N * T2, 256)), dim3(256), 0, st>>>(
@@ -432,23 +355,23 @@ int backward(void* const* P, int G, int nb, float* wsp, cudaStream_t st) {
   // ---- BN4 + relu, conv4
   DTR_RC(bn_backward(P, 3, P[P_A4], P[G4], P[O4], w.bufA, w.bufB, P[GG4], P[GO4], w, G, nb, C2, T2, st));
   DTR_RC((weight_grad_s<S, 0>(w.bufB, planes<S>(P[P_H3], nb, C2, T2), C2, C2, T2, N, P[GW4], P[GB4], w, st)));
-  DTR_RC(data_grad_s<S>(w.bufB, P[W4], w.bufA, N, nb, C2, C2, T2, w, st));
+  DTR_RC(data_grad_s<S>(w.bufB, P[W4], w.bufA, N, C2, C2, T2, w, st));
 
   // ---- BN3 + relu, conv3 on up2(h2)
   DTR_RC(bn_backward(P, 2, P[P_A3], P[G3], P[O3], w.bufA, w.bufB, P[GG3], P[GO3], w, G, nb, C2, T2, st));
   DTR_RC((weight_grad_s<S, 1>(w.bufB, planes<S>(P[P_H2], nb, C1, T1), C1, C2, T2, N, P[GW3], P[GB3], w, st)));
-  DTR_RC(data_grad_s<S>(w.bufB, P[W3], w.bufU, N, nb, C2, C1, T2, w, st));
+  DTR_RC(data_grad_s<S>(w.bufB, P[W3], w.bufU, N, C2, C1, T2, w, st));
   DTR_RC(up2_adjoint(w.bufU, w.bufA, N, nb, C1, T1, (long long)nb * C1 * T1, (long long)C1 * T1, T1, st));
 
   // ---- BN2 + relu, conv2
   DTR_RC(bn_backward(P, 1, P[P_A2], P[G2], P[O2], w.bufA, w.bufB, P[GG2], P[GO2], w, G, nb, C1, T1, st));
   DTR_RC((weight_grad_s<S, 0>(w.bufB, planes<S>(P[P_H1], nb, C1, T1), C1, C1, T1, N, P[GW2], P[GB2], w, st)));
-  DTR_RC(data_grad_s<S>(w.bufB, P[W2], w.bufA, N, nb, C1, C1, T1, w, st));
+  DTR_RC(data_grad_s<S>(w.bufB, P[W2], w.bufA, N, C1, C1, T1, w, st));
 
   // ---- BN1 + relu, conv1 on up2(x); dx in x's layout [G, 256, nb*128]
   DTR_RC(bn_backward(P, 0, P[P_A1], P[G1], P[O1], w.bufA, w.bufB, P[GG1], P[GO1], w, G, nb, C1, T1, st));
   DTR_RC((weight_grad_s<S, 1>(w.bufB, grouped<S>(P[X], nb, C0, T0), C0, C1, T1, N, P[GW1], P[GB1], w, st)));
-  DTR_RC(data_grad_s<S>(w.bufB, P[W1], w.bufU, N, nb, C1, C0, T1, w, st));
+  DTR_RC(data_grad_s<S>(w.bufB, P[W1], w.bufU, N, C1, C0, T1, w, st));
   return up2_adjoint(w.bufU, static_cast<float*>(P[DX]), N, nb, C0, T0, (long long)C0 * nb * T0, T0,
                      (long long)nb * T0, st);
 }
@@ -461,9 +384,14 @@ int backward(void* const* P, int G, int nb, float* wsp, cudaStream_t st) {
 // the forward's inputs; its planes, out, mean and var as the forward launch
 // left them (read only); dout [G, nb, 512] f32; and the float outputs dx
 // [G, 256, nb*128], dw1..dw5 [3, Cout, Cin], the bias and BN-affine gradients
-// [Cout]. `workspace` holds decoder_train_bwd_workspace_floats(G, nb) floats.
-extern "C" long long decoder_train_bwd_workspace_floats(int G, int nb) {
-  return dtr::workspace_floats(G, nb);
+// [Cout]. `workspace` holds decoder_train_bwd_workspace_floats_<dtype>(G, nb)
+// floats.
+extern "C" long long decoder_train_bwd_workspace_floats_f32(int G, int nb) {
+  return dtr::layout<float>(G, nb, nullptr, nullptr);
+}
+
+extern "C" long long decoder_train_bwd_workspace_floats_bf16(int G, int nb) {
+  return dtr::layout<__nv_bfloat16>(G, nb, nullptr, nullptr);
 }
 
 extern "C" int decoder_train_bwd_f32(void* const* ptrs, int G, int nb, void* workspace, void* stream) {
@@ -482,3 +410,27 @@ extern "C" int decoder_train_bwd_nptr() { return dtr::NPTR; }
 extern "C" const char* decoder_train_bwd_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
+
+// The float32 engine's weight gradient at (Cout, Cin, T) over N samples: its
+// blocks, and the blocks of it (dw = 1) or of the data gradient (dw = 0) that
+// one SM holds at once on this device.
+extern "C" int decoder_train_bwd_fma_dw_blocks(int Cout, int Cin, int T, int N) {
+  return (Cin / dtr::fma::BI) * (Cout / dtr::fma::BO) * dtr::fma::dw_ranges(Cout, Cin, T, N);
+}
+
+extern "C" int decoder_train_bwd_fma_blocks_per_sm(int dw) {
+  int n = 0;
+  cudaError_t e;
+  if (dw) {
+    e = cudaFuncSetAttribute(dtr::fma::dw_kernel_fma, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             dtr::fma::DW_SMEM);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, dtr::fma::dw_kernel_fma, dtr::fma::DW_THREADS,
+                                                        dtr::fma::DW_SMEM);
+  } else {
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, dtr::fma::dgrad_kernel_fma, dtr::fma::THREADS, 0);
+  }
+  return e == cudaSuccess ? n : -(int)e;
+}
+
+extern "C" int decoder_train_bwd_fma_dw_smem_bytes() { return dtr::fma::DW_SMEM; }

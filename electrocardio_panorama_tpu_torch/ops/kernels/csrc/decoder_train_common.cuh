@@ -35,7 +35,8 @@
 // one kernel per stage with every plane in device memory: a conv stage
 // writes the pre-BN plane, a reduction takes the moments, and an elementwise
 // stage normalises, applies the affine and the relu. The backward reads
-// those planes; its bf16 products run on decoder_train_tc.cuh.
+// those planes; its products run on decoder_train_fma.cuh (float32) and
+// decoder_train_tc.cuh (bfloat16).
 
 #pragma once
 

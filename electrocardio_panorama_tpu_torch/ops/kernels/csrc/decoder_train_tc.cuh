@@ -1,19 +1,19 @@
 // The bfloat16 tensor-core engine of the fused train decoder's backward (A4b,
 // decoder_train_bwd.cu, the only file that includes it, after the SIMT
-// dw_reduce_kernel that it shares) for Hopper, sm_90a:
+// dw_reduce_kernel and bias_reduce_kernel that it uses) for Hopper, sm_90a:
 // the data gradients and the weight gradients of conv1..conv4 as implicit
 // GEMMs on `mma.sync.m16n8k16` bf16 products with float32 accumulators. The
-// float32 instantiation keeps the SIMT kernels of decoder_train_bwd.cu, and
-// conv5 (one output channel), the BN and sigmoid backward, the bias sums and
-// the up2 adjoints stay SIMT in both.
+// float32 instantiation runs them on the FMA engine of decoder_train_fma.cuh,
+// and conv5 (one output channel), the BN and sigmoid backward and the up2
+// adjoints stay SIMT in both.
 //
 // Replaces, with those, the TPU kernel
 // electrocardio_panorama_tpu/ops/pallas/decoder_train.py::_train_bwd_kernel.
 //
 // Rounding. A float gradient plane rounds to bf16 (nearest even) as it is
-// staged, where the SIMT kernels' round_s rounds it, and the forward's planes
-// are bf16 already: every product is of two bf16 values, exact in float32,
-// so only the order of the float32 sums differs from the SIMT kernels.
+// staged, where the plain version rounds it (round_s, GradRound), and the
+// forward's planes are bf16 already: every product is of two bf16 values,
+// exact in float32, so only the order of the float32 sums differs.
 //
 // Data gradients (dgrad_kernel_tc): out[n, q, t] = sum over (k, r) of
 // w[2 - k, r, q] * dy[n, r, t + k - 1], the forward's weights transposed and
@@ -35,8 +35,8 @@
 // repeat launch gives the same bits; the ranges depend on the shape alone).
 // The conv's bias gradient, the sum of the unrounded dy, rides along: the
 // blocks of the first input-channel tile sum the dy they stage, and
-// bias_reduce_kernel adds their partials in order (on an H100 the SIMT
-// colsum_kernel, one block per channel, took 0.16 ms of a 1.01 ms launch).
+// bias_reduce_kernel adds their partials in order (on an H100 a SIMT
+// kernel with one block per channel took 0.16 ms of a 1.01 ms launch).
 //
 // The upsampled convs (conv1 on up2(x), conv3 on up2(h2)). up2(h) is
 // 0.75 * h[m] + 0.25 * h[m -+ 1] (clamped at the ends), a float that is not a
@@ -431,21 +431,6 @@ __global__ void dw_reduce_up_kernel(const float* __restrict__ part, int ranges, 
   out[(long long)o * Cin + i] = 0.75f * S[0][0] + 0.25f * S[0][1] + 0.75f * S[1][1] + 0.25f * S[1][0] - first;
   out[((long long)Cout + o) * Cin + i] = 0.75f * (S[0][1] + S[1][1]) + 0.25f * (S[0][0] + S[1][2]);
   out[(2LL * Cout + o) * Cin + i] = 0.75f * S[0][1] + 0.25f * S[0][2] + 0.75f * S[1][2] + 0.25f * S[1][1] - last;
-}
-
-// bias[o] = the sum of the partials of rows (phase, o) over ranges and
-// phases: one warp per o, lane l adding ranges l, l + 32, ... in order, then
-// a fixed shuffle tree.
-__global__ void bias_reduce_kernel(const float* __restrict__ part, int ranges, int phases, int Cout,
-                                   float* __restrict__ out) {
-  const int o = blockIdx.x * (blockDim.x / 32) + threadIdx.x / 32, lane = threadIdx.x & 31;
-  if (o >= Cout) return;  // whole warps
-  float s = 0.f;
-  for (int z = lane; z < ranges; z += 32)
-    for (int p = 0; p < phases; ++p) s += part[(z * phases + p) * Cout + o];
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
-  if (lane == 0) out[o] = s;
 }
 
 // Positions per range of a weight gradient over P positions with `tiles`

@@ -54,6 +54,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "tc_ptx.cuh"
+
 namespace enc {
 namespace fma {
 
@@ -64,22 +66,7 @@ constexpr int GROUPS = 2;    // conv blocks: two groups of 8 x 8 threads, each t
 constexpr int THREADS = 64 * GROUPS;
 constexpr int MIN_BLOCKS = 3;  // conv blocks per SM: at most 168 registers a thread
 
-// ------------------------------------------------------------------ PTX
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-// 16 bytes, or 16 zero bytes where !valid (src is then not read)
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src), "r"(valid ? 16 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, bool valid) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src), "r"(valid ? 4 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory"); }
+using namespace tcptx;  // cp.async
 
 // ------------------------------------------------------------- weight packing
 // out[((g*K + k)*cig + ci)*cog + o] = W(g, o, ci, k), from the operand's

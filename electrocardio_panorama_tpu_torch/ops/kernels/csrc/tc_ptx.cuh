@@ -1,9 +1,10 @@
-// Inline PTX wrappers shared by the bfloat16 tensor-core engines of the fused
-// encoder (encoder_tc.cuh) and of the fused train decoder's backward
-// (decoder_train_tc.cuh), for Hopper, sm_90a: cp.async copies into shared
-// memory, ldmatrix loads of 8x8 bf16 matrices, the mma.sync m16n8k16 bf16
-// product with float32 accumulators and a warp's 32 x 32 tile of them, and
-// packing floats into bf16 pairs.
+// Inline PTX wrappers shared by the engines of the fused encoder
+// (encoder_tc.cuh, encoder_fma.cuh) and of the fused train decoder's backward
+// (decoder_train_tc.cuh, decoder_train_fma.cuh), for Hopper, sm_90a: cp.async
+// copies into shared memory (the FMA engines' with zero fill), ldmatrix loads
+// of 8x8 bf16 matrices, the mma.sync m16n8k16 bf16 product with float32
+// accumulators and a warp's 32 x 32 tile of them, and packing floats into
+// bf16 pairs.
 
 #pragma once
 
@@ -18,6 +19,15 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
 }
 __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(src) : "memory");
+}
+// 16 bytes, or 16 zero bytes where !valid (src is then not read)
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
 }
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
 template <int N>

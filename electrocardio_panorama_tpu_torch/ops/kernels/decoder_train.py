@@ -42,9 +42,16 @@ product and sum are float32, and in the backward a gradient rounds to it only
 as a conv product's operand (`GradRound`). The TPU kernel's upsample matmuls
 round one more intermediate that the time-order form does not have, so
 bfloat16 agrees with the JAX package within a tolerance, not bitwise.
-In bfloat16 A4b runs its data and weight gradients on tensor cores
-(`csrc/decoder_train_tc.cuh`): every product is of two bfloat16 values, as
-here, and only the order of the float32 sums differs.
+A4b runs its conv data and weight gradients on the engine of the storage
+type: in float32 a register-tiled FMA engine at full float32
+(`csrc/decoder_train_fma.cuh`), in bfloat16 tensor cores
+(`csrc/decoder_train_tc.cuh`; every product is of two bfloat16 values, as
+here). Only the order of the float32 sums differs from this module's plain
+version.
+
+`train_decode_groups_plain(..., float64=True)` runs the float32 function in
+float64: a third point that both the float32 kernels and the float32 plain
+version are measured against (`chip_smoke.py`).
 """
 
 from __future__ import annotations
@@ -127,14 +134,19 @@ def chain_running_stats(state: dict, mean, var, nb: int, momentum: float = 0.1) 
 
 
 # ------------------------------------------------------------- plain version
-def train_decode_groups_plain(w: dict, x):
+def train_decode_groups_plain(w: dict, x, *, float64: bool = False):
     """The kernel pair's function in eager PyTorch, differentiable by
     autograd. w = pack_train_weights(params, dtype); x [G, 256, nb*128] in
     the same dtype. Returns (out [G, nb, 512] float32, mean [G, 4, 128], var
     [G, 4, 128]): the moments are biased batch moments, channel-padded,
-    detached."""
+    detached. `float64=True` (float32 inputs only) runs every op in float64
+    and returns float64: a reference that the float32 kernels and this
+    function's float32 pass are both held against."""
     sd = w["w1"].dtype
     mixed = sd != torch.float32
+    if float64 and (mixed or x.dtype != torch.float32):
+        raise ValueError(f"train_decode_groups_plain: float64=True takes float32 inputs, got {sd} / {x.dtype}")
+    cd = torch.float64 if float64 else torch.float32
     G, C, n = x.shape
     nb = n // FEAT
 
@@ -144,8 +156,8 @@ def train_decode_groups_plain(w: dict, x):
     def conv(h, i):
         # the output's gradient rounds as the operand of the conv's data and
         # weight gradients; the bias gradient sums it unrounded
-        y = conv1d(h, w[f"w{i}"].float().permute(1, 2, 0), padding=1)
-        return (GradRound.apply(y, sd) if mixed else y) + w[f"b{i}"][:, None]
+        y = conv1d(h, w[f"w{i}"].to(cd).permute(1, 2, 0), padding=1)
+        return (GradRound.apply(y, sd) if mixed else y) + w[f"b{i}"].to(cd)[:, None]
 
     means, variances = [], []
 
@@ -157,11 +169,11 @@ def train_decode_groups_plain(w: dict, x):
         means.append(torch.nn.functional.pad(mean.detach(), (0, FEAT - c)))
         variances.append(torch.nn.functional.pad(var.detach(), (0, FEAT - c)))
         xhat = (ag - mean[:, None, :, None]) * torch.rsqrt(var + EPS)[:, None, :, None]
-        out = torch.relu(xhat * w[f"g{i}"][None, None, :, None] + w[f"o{i}"][None, None, :, None])
+        out = torch.relu(xhat * w[f"g{i}"].to(cd)[None, None, :, None] + w[f"o{i}"].to(cd)[None, None, :, None])
         return out.reshape(G * nb, c, t)
 
     with full_f32():
-        h = x.float().reshape(G, C, nb, FEAT).permute(0, 2, 1, 3).reshape(G * nb, C, FEAT)
+        h = x.to(cd).reshape(G, C, nb, FEAT).permute(0, 2, 1, 3).reshape(G * nb, C, FEAT)
         h = R(bn_relu(conv(upsample_linear_x2(h), 1), 1))
         h = R(bn_relu(conv(h, 2), 2))
         h = R(bn_relu(conv(upsample_linear_x2(h), 3), 3))
@@ -185,18 +197,26 @@ def _check(w: dict, x):
                              f"{list(w[k].shape)} {w[k].dtype} on {w[k].device}")
 
 
+def _suffix(sd) -> str:
+    return "bf16" if sd == torch.bfloat16 else "f32"
+
+
 def _lib(kind: str, sd):
+    """(library, launch function) of kernel A4f (kind "fwd") or A4b ("bwd")
+    for storage dtype sd; A4b's workspace size is `decoder_train_bwd_
+    workspace_floats_<suffix>(G, nb)`, typed here."""
     lib = build.load(f"decoder_train_{kind}")
     nptr = getattr(lib, f"decoder_train_{kind}_nptr")
     nptr.restype = ctypes.c_int
     if nptr() != len(PTR_NAMES):
         raise RuntimeError(f"decoder_train_{kind}: {nptr()} kernel pointers, the wrapper has {len(PTR_NAMES)}")
-    fn = getattr(lib, f"decoder_train_{kind}_{'bf16' if sd == torch.bfloat16 else 'f32'}")
+    fn = getattr(lib, f"decoder_train_{kind}_{_suffix(sd)}")
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * (1 if kind == "fwd" else 2)
     if kind == "bwd":
-        lib.decoder_train_bwd_workspace_floats.restype = ctypes.c_longlong
-        lib.decoder_train_bwd_workspace_floats.argtypes = [ctypes.c_int, ctypes.c_int]
+        ws = getattr(lib, f"decoder_train_bwd_workspace_floats_{_suffix(sd)}")
+        ws.restype = ctypes.c_longlong
+        ws.argtypes = [ctypes.c_int, ctypes.c_int]
     return lib, fn
 
 
@@ -285,7 +305,8 @@ def _decoder_train_bwd_op(x: torch.Tensor, weights: list[torch.Tensor], dout: to
     t["DX"] = torch.empty(x.shape, dtype=torch.float32, device=dev)
     grads = {"G" + n.upper(): torch.empty(v.shape, dtype=torch.float32, device=dev)
              for n, v in zip(WNAMES, weights)}
-    ws = torch.empty(lib.decoder_train_bwd_workspace_floats(G, nb), dtype=torch.float32, device=dev)
+    n_ws = getattr(lib, f"decoder_train_bwd_workspace_floats_{_suffix(x.dtype)}")(G, nb)
+    ws = torch.empty(n_ws, dtype=torch.float32, device=dev)
     rc = fn(_ptr_table({**t, **grads}), G, nb, ws.data_ptr(), _stream(dev))
     if rc != 0:
         _raise(lib, "bwd", rc)
