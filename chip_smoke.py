@@ -14,10 +14,10 @@ result line:
                encoder_ckpt off/tower/full and a repeat launch; A4f/A4b (the
                fused train decoder) at 3 groups of 32 for the output, the
                batch moments, dx and all 18 parameter gradients, bitwise
-               across a repeat launch, float32 A4b's device ms by kernel and
-               its FMA engine's TFLOP/s, and both float32 sides' distance
-               from a float64 pass; float32 and bfloat16, timed with CUDA
-               events;
+               across a repeat launch, float32 A4f's and A4b's device ms by
+               kernel, their FMA engine's TFLOP/s and resources, and both
+               float32 sides' out, moments and gradient distance from a
+               float64 pass; float32 and bfloat16, timed with CUDA events;
   4. render  — the port's render entry point (`render.main`) on a generated
                synthetic corpus with a seeded random checkpoint, over the
                84-view grid, in float32 and bfloat16, through A1; launch
@@ -570,27 +570,73 @@ def forms_kernels(card: str, dev, params, latent, folded, rng) -> dict:
     return stats
 
 
-def decoder_float64_distances(card, a4, w, x, dout, runs: dict, label: str) -> None:
+def decoder_float64_distances(card, a4, w, x, dout, runs: dict, label: str) -> bool:
     """Print how far each float32 run in `runs` ({name: (out dict, grads)},
     the kernels and the plain version) lies from a float64 pass of the plain
-    version on the same inputs: out's largest absolute difference and the
-    gradients' worst L2 relative distance (the conv biases before a BN,
-    rounding noise on every side, left out)."""
+    version on the same inputs: out's and the moments' largest absolute
+    difference and the gradients' worst L2 relative distance (the conv
+    biases before a BN, rounding noise on every side, left out). Returns
+    whether the kernel's moments lie within 1e-5 (relative and absolute) of
+    the float64 pass's."""
     from electrocardio_panorama_tpu_torch.ops import full_f32
 
     ws = {k: v.clone().requires_grad_(True) for k, v in w.items()}
     xg = x.clone().requires_grad_(True)
     with full_f32():
-        out, _, _ = a4.train_decode_groups_plain(ws, xg, float64=True)
+        out, mean, var = a4.train_decode_groups_plain(ws, xg, float64=True)
         out.backward(dout.double())
     truth_out, truth = out.detach(), {"x": xg.grad, **{k: v.grad for k, v in ws.items()}}
-    parts = []
+    moments = {"mean": mean, "var": var}
+    parts, within = [], {}
     for name, (fwd, grads) in runs.items():
         err = float((fwd["out"].double() - truth_out).abs().max())
+        m_err = max(float((fwd[k].double() - v).abs().max()) for k, v in moments.items())
+        within[name] = all(torch.allclose(fwd[k].double(), v, rtol=1e-5, atol=1e-5) for k, v in moments.items())
         l2, worst = max((grad_errors(grads[k], truth[k])[1], k) for k in truth if k not in DEC_NOISE_KEYS)
-        parts.append(f"{name}: out max abs {err:.3e}, worst grad {worst} L2 {l2:.3e}")
+        parts.append(f"{name}: out max abs {err:.3e}, moments max abs {m_err:.3e} (within 1e-5: {within[name]}), "
+                     f"worst grad {worst} L2 {l2:.3e}")
     log("kernels", f"decoder_train f32 distance from a float64 plain pass (G=3, nb={B}, {label}): "
                    + "; ".join(parts) + f" on {card}")
+    return within["kernel"]
+
+
+def decoder_fma_forward(card: str, a4, w, x) -> None:
+    """Print float32 A4f's device ms by kernel (torch.profiler) and its conv
+    stages' TFLOP/s on the FMA engine, and the forward conv kernel's
+    registers, spills, shared memory, blocks per SM and grid against the
+    card's SMs. Fails if a conv3_kernel<float...> ran, the FMA forward kernel
+    did not, it spills, or it fits no SM."""
+    from electrocardio_panorama_tpu_torch.ops.kernels import build
+    from electrocardio_panorama_tpu_torch.utils.profiling import device_window
+
+    N = 3 * B
+    split = device_window(lambda: [a4.forward_cuda(w, x) for _ in range(5)], 5, top=16)
+    by = split["by_kernel"]
+    conv_ms = sum(v for k, v in by.items() if "conv_fwd_kernel_fma" in k)
+    flops = 2 * (CONV1_MACS + TAIL_MACS - 64 * 3 * 512) * N  # conv1..conv4
+    log("kernels", "A4f f32 device ms per launch by kernel (torch.profiler): "
+                   + "; ".join(f"{k} {v:.3f}" for k, v in by.items())
+                   + f"; all kernels {split['kernel_sum_ms']:.3f}, busy {split['busy_ms']:.3f}; the four convs "
+                   + f"{conv_ms:.3f} ms = {flops / (1e9 * conv_ms) if conv_ms else 0.0:.1f} TFLOP/s on {card}")
+    lib = build.load("decoder_train_fwd")
+    res = (ctypes.c_int * 4)()
+    rc = lib.decoder_train_fwd_fma_resources(res)
+    regs, local, smem, per_sm = res
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    grids = {f"conv{i}": N * t // 64 * (co // 64)
+             for i, (co, t) in enumerate(((128, 256), (128, 256), (64, 512), (64, 512)), 1)}
+    ws = lib.decoder_train_fwd_workspace_floats_f32
+    ws.restype, ws.argtypes = ctypes.c_longlong, [ctypes.c_int, ctypes.c_int]
+    line = (f"FMA engine forward (decoder_train_fma.cuh conv_fwd_kernel_fma): {regs} registers, {local} bytes "
+            f"local memory (spills), {smem} bytes static shared memory, {per_sm} blocks per SM of {sms} SMs; blocks "
+            + ", ".join(f"{k} {v} ({v / (sms * max(per_sm, 1)):.2f} waves)" for k, v in grids.items())
+            + f"; A4f f32 workspace at 3 groups of {B}: {ws(3, B) * 4 / 1e6:.2f} MB")
+    if (rc != 0 or local > 0 or per_sm < 1 or conv_ms == 0
+            or any("conv3_kernel<float" in k or "conv3_kernelIf" in k for k in by)):
+        log("kernels", f"FAIL {line} (rc {rc}); a conv3_kernel<float...> ran, the FMA forward kernel did not, "
+                       "it spills, or it fits no SM")
+        raise SystemExit(1)
+    log("kernels", line)
 
 
 def decoder_fma_engine(card: str, a4, w, x, dout, planes) -> None:
@@ -703,13 +749,16 @@ def train_decoder_kernels(card: str, dev) -> dict:
             o_ok, _, o_worst = grads_ok(open_grads, open_ref_grads, DEC_F32_OPEN_L2, DEC_F32_GRAD_CORR)
             o_ok = o_ok and float((open_fwd["out"] - open_ref["out"]).abs().max()) <= F32_TOL
             ok = ok and g_ok and o_ok
-            extra = (f"; every relu open: worst grad {o_worst[2]} L2 {o_worst[0]:.2e}; A4b's convs on the FMA "
-                     f"engine decoder_train_fma.cuh")
-            decoder_float64_distances(card, a4, w, x, dout, {"kernel": (fwd, grads), "plain f32": (ref_fwd, ref_grads)},
-                                      "the model's BN offsets")
-            decoder_float64_distances(card, a4, w_open, x, dout, {"kernel": (open_fwd, open_grads),
-                                                                  "plain f32": (open_ref, open_ref_grads)},
-                                      "every relu open")
+            extra = (f"; every relu open: worst grad {o_worst[2]} L2 {o_worst[0]:.2e}; A4f's and A4b's convs on "
+                     f"the FMA engine decoder_train_fma.cuh (A4f: conv_fwd_kernel_fma)")
+            m_ok = decoder_float64_distances(card, a4, w, x, dout, {"kernel": (fwd, grads),
+                                                                    "plain f32": (ref_fwd, ref_grads)},
+                                             "the model's BN offsets")
+            m_ok = decoder_float64_distances(card, a4, w_open, x, dout, {"kernel": (open_fwd, open_grads),
+                                                                         "plain f32": (open_ref, open_ref_grads)},
+                                             "every relu open") and m_ok
+            ok = ok and m_ok
+            extra += f"; kernel moments within 1e-5 of the float64 pass: {m_ok}"
         else:
             _, corr = compare(fwd["out"], ref_fwd["out"])
             ok = ok and fwd_err <= DEC_BF16_FWD and corr > DEC_BF16_FWD_CORR and stat_err <= DEC_BF16_STAT
@@ -754,6 +803,7 @@ def train_decoder_kernels(card: str, dev) -> dict:
                        f"{fby}), A4b on the kept planes {bwd_ms:.3f} ms/launch (plain {plain_bwd_ms:.3f} ms, "
                        f"bound {bb:.4f} ms {bby}), A4f + A4b {pair_ms:.3f} ms on {card}")
         if dt == torch.float32:
+            decoder_fma_forward(card, a4, w, x)
             decoder_fma_engine(card, a4, w, x, dout, planes)
     return stats
 

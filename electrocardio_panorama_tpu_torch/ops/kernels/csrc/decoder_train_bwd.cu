@@ -33,6 +33,8 @@
 #include <type_traits>
 
 #include "decoder_train_common.cuh"
+#include "decoder_train_fma.cuh"
+#include "decoder_train_tc.cuh"
 
 namespace dtr {
 namespace {
@@ -172,47 +174,6 @@ __global__ void up2_adjoint_kernel(const float* __restrict__ du, float* __restri
                   + 0.25f * (t > 0 ? d[2 * t - 1] : d[0]);
   out[(n / nb) * sG + (n % nb) * sB + c * sC + t] = v;
 }
-
-// Adds the ranges' partials in order and writes the gradient tap-major:
-// (o, i, k) at out[(k*Cout + o)*Cin + i].
-__global__ void dw_reduce_kernel(const float* __restrict__ part, int ranges, int Cout, int Cin,
-                                 float* __restrict__ out) {
-  const int n = Cout * Cin * 3;
-  const int e = blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= n) return;
-  float s = 0.f;
-  for (int z = 0; z < ranges; ++z) s += part[(size_t)z * n + e];
-  const int R = Cin * 3;
-  const int o = e / R, r = e - o * R;
-  const int i = r / 3, k = r - 3 * i;
-  out[((size_t)k * Cout + o) * Cin + i] = s;
-}
-
-// bias[o] = the sum of the partials of rows (phase, o) over ranges and
-// phases: one warp per o, lane l adding ranges l, l + 32, ... in order, then
-// a fixed shuffle tree.
-__global__ void bias_reduce_kernel(const float* __restrict__ part, int ranges, int phases, int Cout,
-                                   float* __restrict__ out) {
-  const int o = blockIdx.x * (blockDim.x / 32) + threadIdx.x / 32, lane = threadIdx.x & 31;
-  if (o >= Cout) return;  // whole warps
-  float s = 0.f;
-  for (int z = lane; z < ranges; z += 32)
-    for (int p = 0; p < phases; ++p) s += part[(z * phases + p) * Cout + o];
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
-  if (lane == 0) out[o] = s;
-}
-
-}  // namespace
-}  // namespace dtr
-
-// the engines; they reduce their bias partials with bias_reduce_kernel above,
-// and the bf16 engine its plain weight-gradient partials with dw_reduce_kernel
-#include "decoder_train_fma.cuh"
-#include "decoder_train_tc.cuh"
-
-namespace dtr {
-namespace {
 
 struct Scratch {
   float *dz, *bufA, *bufB, *bufU, *s1, *s2, *part, *bias_part;

@@ -31,10 +31,12 @@
 // bits.
 //
 // Bound: 113.4 MFLOP per sample forward against 128 KB of input, so the
-// forward is bound by operations. It is direct SIMT work (no tensor cores),
-// one kernel per stage with every plane in device memory: a conv stage
-// writes the pre-BN plane, a reduction takes the moments, and an elementwise
-// stage normalises, applies the affine and the relu. The backward reads
+// forward is bound by operations. It runs one kernel per stage with every
+// plane in device memory: a conv stage writes the pre-BN plane, a reduction
+// takes the moments, and an elementwise stage normalises, applies the affine
+// and the relu. The conv stages run on the FMA engine of decoder_train_fma.cuh
+// in float32 and on conv3_kernel below (direct SIMT) in bfloat16; the
+// moments, the normalisation and conv5 are SIMT in both. The backward reads
 // those planes; its products run on decoder_train_fma.cuh (float32) and
 // decoder_train_tc.cuh (bfloat16).
 
@@ -119,8 +121,8 @@ __device__ __forceinline__ float conv_input(const View<TI>& in, int n, int c, in
 
 // out[n, o, t] = bias[o] + sum over (i, k) of W(k, o, i) * input(n, i, t + k - 1),
 // input = up2(round_s(in)) (UP) or round_s(in), zero outside [0, T);
-// W(k, o, i) = w[k*wsK + o*wsO + i*wsI] (strides may be negative: a data
-// gradient reads the forward weights transposed and flipped). bias may be null.
+// W(k, o, i) = w[k*wsK + o*wsO + i*wsI]. bias may be null. The bfloat16
+// forward's conv stage (float32 runs on the FMA engine of decoder_train_fma.cuh).
 // grid: (samples, T / T_T, Cout / CO_T); out is [samples, Cout, T] float.
 template <typename S, typename TI, int UP>
 __global__ void __launch_bounds__(THREADS)
@@ -198,6 +200,38 @@ __device__ __forceinline__ float block_sum(float v, float* red) {
     __syncthreads();
   }
   return red[0];
+}
+
+// The backward engines' reductions of their partials (decoder_train_fma.cuh,
+// decoder_train_tc.cuh).
+// Adds the ranges' partials in order and writes the gradient tap-major:
+// (o, i, k) at out[(k*Cout + o)*Cin + i].
+__global__ void dw_reduce_kernel(const float* __restrict__ part, int ranges, int Cout, int Cin,
+                                 float* __restrict__ out) {
+  const int n = Cout * Cin * 3;
+  const int e = blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= n) return;
+  float s = 0.f;
+  for (int z = 0; z < ranges; ++z) s += part[(size_t)z * n + e];
+  const int R = Cin * 3;
+  const int o = e / R, r = e - o * R;
+  const int i = r / 3, k = r - 3 * i;
+  out[((size_t)k * Cout + o) * Cin + i] = s;
+}
+
+// bias[o] = the sum of the partials of rows (phase, o) over ranges and
+// phases: one warp per o, lane l adding ranges l, l + 32, ... in order, then
+// a fixed shuffle tree.
+__global__ void bias_reduce_kernel(const float* __restrict__ part, int ranges, int phases, int Cout,
+                                   float* __restrict__ out) {
+  const int o = blockIdx.x * (blockDim.x / 32) + threadIdx.x / 32, lane = threadIdx.x & 31;
+  if (o >= Cout) return;  // whole warps
+  float s = 0.f;
+  for (int z = lane; z < ranges; z += 32)
+    for (int p = 0; p < phases; ++p) s += part[(z * phases + p) * Cout + o];
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
+  if (lane == 0) out[o] = s;
 }
 
 __device__ __forceinline__ float bn_inv(float var) { return 1.0f / sqrtf(var + EPS); }

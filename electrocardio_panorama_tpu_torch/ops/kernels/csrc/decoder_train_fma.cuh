@@ -1,30 +1,37 @@
-// The float32 FMA engine of the fused train decoder's backward (A4b,
-// decoder_train_bwd.cu, the only file that includes it, after the SIMT
-// dw_reduce_kernel and bias_reduce_kernel that it shares with
-// decoder_train_tc.cuh) for Hopper, sm_90a: the data gradients and the
-// weight gradients of conv1..conv4 as plain FMA at full float32 (no TF32, no
-// tensor cores), the conv biases' gradients riding in the weight-gradient
-// blocks. The bfloat16 instantiation runs the same products on
-// decoder_train_tc.cuh; conv5, the BN and sigmoid backward and the up2
-// adjoints stay SIMT in both.
+// The float32 FMA engine of the fused train decoder (A4f, decoder_train_fwd.cu,
+// and A4b, decoder_train_bwd.cu) for Hopper, sm_90a: the forward convs, the
+// data gradients and the weight gradients of conv1..conv4 as plain FMA at full
+// float32 (no TF32, no tensor cores), the conv biases' gradients riding in the
+// weight-gradient blocks. The bfloat16 instantiations run the forward convs on
+// conv3_kernel (decoder_train_common.cuh) and the backward's products on
+// decoder_train_tc.cuh; conv5, BatchNorm (moments, normalisation, backward),
+// the sigmoid and the up2 adjoints stay SIMT in both.
 //
-// Replaces, with those, the TPU kernel
-// electrocardio_panorama_tpu/ops/pallas/decoder_train.py::_train_bwd_kernel.
+// Replaces, with those, the TPU kernels
+// electrocardio_panorama_tpu/ops/pallas/decoder_train.py::_train_fwd_kernel and
+// ::_train_bwd_kernel.
 //
-// Data gradients (dgrad_kernel_fma): out[n, i, t] = sum over (k, o) of
-// w[2 - k, o, i] * dy[n, o, t + k - 1]. The forward's weights w [3, Cfo, Cfi]
-// are [tap][o][i] already, so the flip is an index and no packing launch is
-// needed. A block takes 64 channels i x 64 positions of one sample (T is a
+// Tap convs (tap_tile): out[n, i, t] = sum over (k, o) of w[2 - k, o, i] *
+// in[n, o, t + k - 1]. A data gradient (dgrad_kernel_fma) is that sum over dy
+// with the forward's weights w [3, Cfo, Cfi], which are [tap][o][i] already,
+// so the flip is an index and no packing launch is needed. A forward conv
+// a[n, o, t] = b[o] + sum over (k, i) of w[k, o, i] * x[n, i, t + k - 1]
+// (conv_fwd_kernel_fma) is the same sum over x with its weights packed once per
+// launch as wt[k'][i][o] = w[2 - k'][o][i] (pack_fwd_kernel), and b added in the
+// store. A block takes 64 output channels x 64 positions of one sample (T is a
 // multiple of 64, so a tile never crosses a sample) with two groups of 64
-// threads, each taking half of every chunk of 16 o's; a thread holds 8
-// channels x 8 positions. Per chunk dy's rows t0 - 4 .. t0 + 67 are staged
-// once (zero outside the sample), so a tap is an offset into a staged row,
-// and the chunk's weights for the three taps beside them; both are 16-byte
-// cp.async copies into a double buffer. Per o a thread reads its positions'
-// taps with 6 float4 loads and per tap 8 weights with two float4 loads
-// (broadcast across the positions' threads), for 192 FMAs. The groups' sums
-// meet in shared memory (group 0's plus group 1's, a fixed order) and leave
-// as float4 rows of the float plane [N, Cfi, T].
+// threads, each taking half of every chunk of 16 summed channels; a thread
+// holds 8 channels x 8 positions. Per chunk the input's rows t0 - 4 .. t0 + 67
+// are staged once (zero outside the sample), so a tap is an offset into a
+// staged row, and the chunk's weights for the three taps beside them; both are
+// 16-byte cp.async copies into a double buffer. Per summed channel a thread
+// reads its positions' taps with 6 float4 loads and per tap 8 weights with two
+// float4 loads (broadcast across the positions' threads), for 192 FMAs. The
+// groups' sums meet in shared memory (group 0's plus group 1's, a fixed order)
+// and leave as float4 rows of the float plane [N, C, T]. The forward's
+// upsampled convs run over up2(x) and up2(h2) materialized per launch by
+// up2_plane_kernel (the values conv_input<float, float, 1> gives), so only the
+// order of the float32 sums differs from conv3_kernel's.
 //
 // Weight gradients (dw_kernel_fma): dW_k[o][i] = sum_p dy[o][p] *
 // X[i][p + k - 1] over one of a fixed set of position ranges, p = (n, t), X
@@ -44,12 +51,13 @@
 // along: the blocks of the first i-tile sum the dy they stage (each group
 // its segment, the groups in order), and bias_reduce_kernel adds the ranges.
 //
-// Bound. At 3 groups of 32 the eight products are 21.8 GFLOP, 0.325 ms at
-// the 67 TFLOP/s float32 FMA peak of an H100, against about 0.1 GB of kept
-// planes, dout and gradients (0.03 ms at 3.35 TB/s): operations bound it.
-// The register tiles keep the FMA pipes, not the shared-memory loads, the
-// limit of the main loops (12 float4 loads per 192 FMAs in a data gradient,
-// 12 scalar loads per 96 in a weight gradient).
+// Bound. At 3 groups of 32 the backward's eight products are 21.8 GFLOP,
+// 0.325 ms at the 67 TFLOP/s float32 FMA peak of an H100, against about 0.1 GB
+// of kept planes, dout and gradients (0.03 ms at 3.35 TB/s), and the forward's
+// four convs 10.9 GFLOP, 0.163 ms: operations bound both. The register tiles
+// keep the FMA pipes, not the shared-memory loads, the limit of the main loops
+// (12 float4 loads per 192 FMAs in a tap conv, 12 scalar loads per 96 in a
+// weight gradient).
 
 #pragma once
 
@@ -70,7 +78,7 @@ constexpr int HALO = 4;  // staged steps before a chunk's first position (16-byt
 // fall on distinct banks
 constexpr int odd4(int n) { return (n / 4) % 2 ? n : n + 4; }
 
-// ------------------------------------------------------------ data gradients
+// --------------------------------- tap convs: data gradients, forward convs
 constexpr int BM = 64;                   // channels i per block
 constexpr int BN = 64;                   // positions per block
 constexpr int O_T = 16;                  // channels o per staged chunk
@@ -81,11 +89,13 @@ constexpr int XF = O_T * ROWS;           // floats of staged dy per buffer
 constexpr int WF = 3 * O_T * BM;         // floats of staged weights per buffer
 constexpr int DG_FLOATS = 2 * (XF + WF);  // 33,792 bytes, static
 
-// grid: (N*T / BN, Cfi / BM); dy [N, Cfo, T], w [3, Cfo, Cfi], out [N, Cfi, T];
-// T a multiple of BN, Cfo of O_T, Cfi of BM.
-__global__ void __launch_bounds__(THREADS, 3) dgrad_kernel_fma(const float* __restrict__ dy,
-                                                             const float* __restrict__ w,
-                                                             float* __restrict__ out, int Cfo, int Cfi, int T) {
+// The tap conv of one block (see the header comment), plus bias[i] when BIAS.
+// grid: (N*T / BN, Cfi / BM); dy [N, Cfo, T], w [3, Cfo, Cfi], bias [Cfi],
+// out [N, Cfi, T]; T a multiple of BN, Cfo of O_T, Cfi of BM.
+template <bool BIAS>
+__device__ __forceinline__ void tap_tile(const float* __restrict__ dy, const float* __restrict__ w,
+                                         const float* __restrict__ bias, float* __restrict__ out, int Cfo,
+                                         int Cfi, int T) {
   __shared__ __align__(16) float smem[DG_FLOATS];
   const int tid = threadIdx.x, tx = tid & 7, ty = (tid >> 3) & 7, grp = tid >> 6;
   const int p0 = blockIdx.x * BN;
@@ -178,9 +188,36 @@ __global__ void __launch_bounds__(THREADS, 3) dgrad_kernel_fma(const float* __re
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
         const float4 u = *reinterpret_cast<const float4*>(tile + (8 * ty + j) * BN + 32 * h + 4 * tx);
-        *reinterpret_cast<float4*>(out + ((long long)n * Cfi + i0 + 8 * ty + j) * T + t0 + 32 * h + 4 * tx) =
-            make_float4(acc[h][j][0] + u.x, acc[h][j][1] + u.y, acc[h][j][2] + u.z, acc[h][j][3] + u.w);
+        float4 v = make_float4(acc[h][j][0] + u.x, acc[h][j][1] + u.y, acc[h][j][2] + u.z, acc[h][j][3] + u.w);
+        if (BIAS) {
+          const float b = bias[i0 + 8 * ty + j];
+          v = make_float4(v.x + b, v.y + b, v.z + b, v.w + b);
+        }
+        *reinterpret_cast<float4*>(out + ((long long)n * Cfi + i0 + 8 * ty + j) * T + t0 + 32 * h + 4 * tx) = v;
       }
+}
+
+__global__ void __launch_bounds__(THREADS, 3) dgrad_kernel_fma(const float* __restrict__ dy,
+                                                             const float* __restrict__ w,
+                                                             float* __restrict__ out, int Cfo, int Cfi, int T) {
+  tap_tile<false>(dy, w, nullptr, out, Cfo, Cfi, T);
+}
+
+// a [N, Cout, T] = bias + conv3(x; w) over x [N, Cin, T], wt the packed
+// weights [3][Cin][Cout] (pack_fwd_kernel). grid: (N*T / BN, Cout / BM).
+__global__ void __launch_bounds__(THREADS, 3) conv_fwd_kernel_fma(const float* __restrict__ x,
+                                                                const float* __restrict__ wt,
+                                                                const float* __restrict__ bias,
+                                                                float* __restrict__ a, int Cin, int Cout, int T) {
+  tap_tile<true>(x, wt, bias, a, Cin, Cout, T);
+}
+
+// wt[k'][i][o] = w[2 - k'][o][i] for a forward conv's weights w [3, Cout, Cin].
+__global__ void pack_fwd_kernel(const float* __restrict__ w, float* __restrict__ wt, int Cout, int Cin) {
+  const int e = blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= 3 * Cout * Cin) return;
+  const int o = e % Cout, i = (e / Cout) % Cin, k = e / (Cout * Cin);
+  wt[e] = w[((2 - k) * Cout + o) * Cin + i];
 }
 
 // The data gradient of a forward conv with weights w [3, Cfo, Cfi] over dy
@@ -188,6 +225,18 @@ __global__ void __launch_bounds__(THREADS, 3) dgrad_kernel_fma(const float* __re
 inline int data_grad(const float* dy, const float* w, float* out, int N, int Cfo, int Cfi, int T, cudaStream_t st) {
   if (T % BN || Cfo % O_T || Cfi % BM) return (int)cudaErrorInvalidValue;
   dgrad_kernel_fma<<<dim3(N * T / BN, Cfi / BM), THREADS, 0, st>>>(dy, w, out, Cfo, Cfi, T);
+  return (int)cudaGetLastError();
+}
+
+// A forward conv with weights w [3, Cout, Cin] and bias [Cout] over the plane
+// x [N, Cin, T]: a [N, Cout, T], float. wt holds 3*Cout*Cin floats for the
+// packed weights.
+inline int forward_conv(const float* x, const float* w, const float* bias, float* wt, float* a, int N, int Cin,
+                        int Cout, int T, cudaStream_t st) {
+  if (T % BN || Cin % O_T || Cout % BM) return (int)cudaErrorInvalidValue;
+  pack_fwd_kernel<<<blocks_for(3LL * Cout * Cin, 256), 256, 0, st>>>(w, wt, Cout, Cin);
+  DTR_TRY(cudaGetLastError());
+  conv_fwd_kernel_fma<<<dim3(N * T / BN, Cout / BM), THREADS, 0, st>>>(x, wt, bias, a, Cin, Cout, T);
   return (int)cudaGetLastError();
 }
 

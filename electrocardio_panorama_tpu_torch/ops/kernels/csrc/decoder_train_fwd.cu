@@ -5,8 +5,16 @@
 // step with BatchNorm on per-group batch statistics, returning the
 // post-sigmoid output and every BN layer's biased batch moments. The chain,
 // its rounding points and its bound are described in decoder_train_common.cuh.
+// The four conv stages run on the engine of the storage type: in float32 the
+// FMA engine of decoder_train_fma.cuh (the upsampled convs over up2 planes
+// materialized in the workspace, the weights packed per launch), in bfloat16
+// conv3_kernel. The moments, BatchNorm + relu, conv5 and the sigmoid are the
+// SIMT kernels below in both.
+
+#include <type_traits>
 
 #include "decoder_train_common.cuh"
+#include "decoder_train_fma.cuh"
 
 namespace dtr {
 
@@ -97,18 +105,41 @@ int bn_layer(void* const* P, int layer, const void* a, const void* gamma, const 
   return (int)cudaGetLastError();
 }
 
+// The float32 forward's workspace, in floats: the upsampled conv's input
+// plane (up2(x) [N, 256, 256], then up2(h2) [N, 128, 512]), then the packed
+// weights of the largest conv.
+inline long long fwd_workspace_floats(int G, int nb) { return (long long)G * nb * C0 * T1 + 3LL * C0 * C1; }
+
+// A conv stage on the engine of the storage type; ws is the float32
+// workspace (fwd_workspace_floats).
+template <typename S, int UP>
+int conv_s(const View<S>& in, const void* w, const void* bias, void* out, int N, int Cin, int Cout, int T,
+           float* ws, cudaStream_t st) {
+  if constexpr (std::is_same<S, __nv_bfloat16>::value) {
+    return (int)launch_conv<S, S, UP>(in, w, bias, out, N, Cin, Cout, T, st);
+  } else {
+    const float* xp = in.p;  // a planes view: [N, Cin, T]
+    if (UP) {
+      DTR_RC(fma::up2_plane(in, ws, N, Cin, T, st));
+      xp = ws;
+    }
+    return fma::forward_conv(xp, static_cast<const float*>(w), static_cast<const float*>(bias),
+                             ws + (long long)N * C0 * T1, static_cast<float*>(out), N, Cin, Cout, T, st);
+  }
+}
+
 // The forward chain: fills P_A1..P_H4, OUT, and the used channels of MEAN
 // and VAR [G, 4, 128] (the wrapper zero-fills the padding).
 template <typename S>
-int forward_chain(void* const* P, int G, int nb, cudaStream_t st) {
+int forward_chain(void* const* P, int G, int nb, float* ws, cudaStream_t st) {
   const int N = G * nb;
-  DTR_TRY((launch_conv<S, S, 1>(grouped<S>(P[X], nb, C0, T0), P[W1], P[B1], P[P_A1], N, C0, C1, T1, st)));
+  DTR_RC((conv_s<S, 1>(grouped<S>(P[X], nb, C0, T0), P[W1], P[B1], P[P_A1], N, C0, C1, T1, ws, st)));
   DTR_RC(bn_layer<S>(P, 0, P[P_A1], P[G1], P[O1], P[P_H1], G, nb, C1, T1, st));
-  DTR_TRY((launch_conv<S, S, 0>(planes<S>(P[P_H1], nb, C1, T1), P[W2], P[B2], P[P_A2], N, C1, C1, T1, st)));
+  DTR_RC((conv_s<S, 0>(planes<S>(P[P_H1], nb, C1, T1), P[W2], P[B2], P[P_A2], N, C1, C1, T1, ws, st)));
   DTR_RC(bn_layer<S>(P, 1, P[P_A2], P[G2], P[O2], P[P_H2], G, nb, C1, T1, st));
-  DTR_TRY((launch_conv<S, S, 1>(planes<S>(P[P_H2], nb, C1, T1), P[W3], P[B3], P[P_A3], N, C1, C2, T2, st)));
+  DTR_RC((conv_s<S, 1>(planes<S>(P[P_H2], nb, C1, T1), P[W3], P[B3], P[P_A3], N, C1, C2, T2, ws, st)));
   DTR_RC(bn_layer<S>(P, 2, P[P_A3], P[G3], P[O3], P[P_H3], G, nb, C2, T2, st));
-  DTR_TRY((launch_conv<S, S, 0>(planes<S>(P[P_H3], nb, C2, T2), P[W4], P[B4], P[P_A4], N, C2, C2, T2, st)));
+  DTR_RC((conv_s<S, 0>(planes<S>(P[P_H3], nb, C2, T2), P[W4], P[B4], P[P_A4], N, C2, C2, T2, ws, st)));
   DTR_RC(bn_layer<float>(P, 3, P[P_A4], P[G4], P[O4], P[P_H4], G, nb, C2, T2, st));
   conv5_sigmoid_kernel<S><<<dim3(N, T2 / 128), dim3(128), 0, st>>>(
       static_cast<const float*>(P[P_H4]), static_cast<const S*>(P[W5]), static_cast<const float*>(P[B5]),
@@ -124,20 +155,45 @@ int forward_chain(void* const* P, int G, int nb, cudaStream_t st) {
 // scratch a1, a2 [G*nb, 128, 256] and a3, a4 [G*nb, 64, 512] f32, h1, h2, h3 in
 // S and h4 f32 of the same shapes; outputs out [G, nb, 512] f32 and mean, var
 // [G, 4, 128] f32, zero-filled by the caller (channels 64..127 of layers 3 and
-// 4 stay zero). The backward's entries of the table are not read. Returns 0
-// or the cudaError_t of the first failed launch.
-extern "C" int decoder_train_fwd_f32(void* const* ptrs, int G, int nb, void* stream) {
-  if (G <= 0 || nb <= 0) return (int)cudaErrorInvalidValue;
-  return dtr::forward_chain<float>(ptrs, G, nb, static_cast<cudaStream_t>(stream));
+// 4 stay zero). The backward's entries of the table are not read. `workspace`
+// holds decoder_train_fwd_workspace_floats_<dtype>(G, nb) floats (none in
+// bfloat16). Returns 0 or the cudaError_t of the first failed launch.
+extern "C" long long decoder_train_fwd_workspace_floats_f32(int G, int nb) {
+  return dtr::fwd_workspace_floats(G, nb);
 }
 
-extern "C" int decoder_train_fwd_bf16(void* const* ptrs, int G, int nb, void* stream) {
+extern "C" long long decoder_train_fwd_workspace_floats_bf16(int, int) { return 0; }
+
+extern "C" int decoder_train_fwd_f32(void* const* ptrs, int G, int nb, void* workspace, void* stream) {
+  if (G <= 0 || nb <= 0 || workspace == nullptr) return (int)cudaErrorInvalidValue;
+  return dtr::forward_chain<float>(ptrs, G, nb, static_cast<float*>(workspace), static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int decoder_train_fwd_bf16(void* const* ptrs, int G, int nb, void*, void* stream) {
   if (G <= 0 || nb <= 0) return (int)cudaErrorInvalidValue;
-  return dtr::forward_chain<__nv_bfloat16>(ptrs, G, nb, static_cast<cudaStream_t>(stream));
+  return dtr::forward_chain<__nv_bfloat16>(ptrs, G, nb, nullptr, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int decoder_train_fwd_nptr() { return dtr::NPTR; }
 
 extern "C" const char* decoder_train_fwd_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+// The float32 forward conv kernel's resources on this device: out[0..3] =
+// registers per thread, local memory bytes per thread (spills), static shared
+// memory bytes, and the blocks one SM holds at once. Returns 0 or a
+// cudaError_t.
+extern "C" int decoder_train_fwd_fma_resources(int* out) {
+  cudaFuncAttributes a;
+  cudaError_t e = cudaFuncGetAttributes(&a, dtr::fma::conv_fwd_kernel_fma);
+  int n = 0;
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, dtr::fma::conv_fwd_kernel_fma, dtr::fma::THREADS, 0);
+  if (e != cudaSuccess) return (int)e;
+  out[0] = a.numRegs;
+  out[1] = (int)a.localSizeBytes;
+  out[2] = (int)a.sharedSizeBytes;
+  out[3] = n;
+  return 0;
 }

@@ -1,6 +1,7 @@
 // The bfloat16 tensor-core engine of the fused train decoder's backward (A4b,
-// decoder_train_bwd.cu, the only file that includes it, after the SIMT
-// dw_reduce_kernel and bias_reduce_kernel that it uses) for Hopper, sm_90a:
+// decoder_train_bwd.cu, the only file that includes it; it reduces its partials
+// with the SIMT dw_reduce_kernel and bias_reduce_kernel of
+// decoder_train_common.cuh) for Hopper, sm_90a:
 // the data gradients and the weight gradients of conv1..conv4 as implicit
 // GEMMs on `mma.sync.m16n8k16` bf16 products with float32 accumulators. The
 // float32 instantiation runs them on the FMA engine of decoder_train_fma.cuh,

@@ -42,12 +42,14 @@ product and sum are float32, and in the backward a gradient rounds to it only
 as a conv product's operand (`GradRound`). The TPU kernel's upsample matmuls
 round one more intermediate that the time-order form does not have, so
 bfloat16 agrees with the JAX package within a tolerance, not bitwise.
-A4b runs its conv data and weight gradients on the engine of the storage
-type: in float32 a register-tiled FMA engine at full float32
-(`csrc/decoder_train_fma.cuh`), in bfloat16 tensor cores
+A4f runs its four conv stages, and A4b its conv data and weight gradients,
+on the engine of the storage type: in float32 a register-tiled FMA engine at
+full float32 (`csrc/decoder_train_fma.cuh`; A4f's upsampled convs read up2
+planes it materializes in a workspace, with the values the SIMT conv read), in
+bfloat16 the SIMT `conv3_kernel` for A4f and tensor cores for A4b
 (`csrc/decoder_train_tc.cuh`; every product is of two bfloat16 values, as
 here). Only the order of the float32 sums differs from this module's plain
-version.
+version. BatchNorm's moments come from a two-pass reduction kernel in both.
 
 `train_decode_groups_plain(..., float64=True)` runs the float32 function in
 float64: a third point that both the float32 kernels and the float32 plain
@@ -202,9 +204,10 @@ def _suffix(sd) -> str:
 
 
 def _lib(kind: str, sd):
-    """(library, launch function) of kernel A4f (kind "fwd") or A4b ("bwd")
-    for storage dtype sd; A4b's workspace size is `decoder_train_bwd_
-    workspace_floats_<suffix>(G, nb)`, typed here."""
+    """(library, launch function, workspace size function) of kernel A4f
+    (kind "fwd") or A4b ("bwd") for storage dtype sd. The launch takes (ptrs,
+    G, nb, workspace, stream); the workspace holds `decoder_train_<kind>_
+    workspace_floats_<suffix>(G, nb)` floats."""
     lib = build.load(f"decoder_train_{kind}")
     nptr = getattr(lib, f"decoder_train_{kind}_nptr")
     nptr.restype = ctypes.c_int
@@ -212,12 +215,11 @@ def _lib(kind: str, sd):
         raise RuntimeError(f"decoder_train_{kind}: {nptr()} kernel pointers, the wrapper has {len(PTR_NAMES)}")
     fn = getattr(lib, f"decoder_train_{kind}_{_suffix(sd)}")
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * (1 if kind == "fwd" else 2)
-    if kind == "bwd":
-        ws = getattr(lib, f"decoder_train_bwd_workspace_floats_{_suffix(sd)}")
-        ws.restype = ctypes.c_longlong
-        ws.argtypes = [ctypes.c_int, ctypes.c_int]
-    return lib, fn
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+    ws = getattr(lib, f"decoder_train_{kind}_workspace_floats_{_suffix(sd)}")
+    ws.restype = ctypes.c_longlong
+    ws.argtypes = [ctypes.c_int, ctypes.c_int]
+    return lib, fn, ws
 
 
 def _ptr_table(tensors: dict):
@@ -283,9 +285,10 @@ def _decoder_train_fwd_op(x: torch.Tensor, weights: list[torch.Tensor]) -> list[
     order (the last three: out, mean, var)."""
     t = _inputs(x, weights)
     G, nb = x.shape[0], x.shape[2] // FEAT
-    lib, fn = _lib("fwd", x.dtype)
+    lib, fn, ws_floats = _lib("fwd", x.dtype)
     planes = _planes(G, nb, x.dtype, x.device)
-    rc = fn(_ptr_table({**t, **planes}), G, nb, _stream(x.device))
+    ws = torch.empty(ws_floats(G, nb), dtype=torch.float32, device=x.device)
+    rc = fn(_ptr_table({**t, **planes}), G, nb, ws.data_ptr(), _stream(x.device))
     if rc != 0:
         _raise(lib, "fwd", rc)
     return list(planes.values())
@@ -300,13 +303,12 @@ def _decoder_train_bwd_op(x: torch.Tensor, weights: list[torch.Tensor], dout: to
     t.update(zip(PLANES, planes))
     G, nb = x.shape[0], x.shape[2] // FEAT
     dev = x.device
-    lib, fn = _lib("bwd", x.dtype)
+    lib, fn, ws_floats = _lib("bwd", x.dtype)
     t["DOUT"] = dout.float().contiguous()
     t["DX"] = torch.empty(x.shape, dtype=torch.float32, device=dev)
     grads = {"G" + n.upper(): torch.empty(v.shape, dtype=torch.float32, device=dev)
              for n, v in zip(WNAMES, weights)}
-    n_ws = getattr(lib, f"decoder_train_bwd_workspace_floats_{_suffix(x.dtype)}")(G, nb)
-    ws = torch.empty(n_ws, dtype=torch.float32, device=dev)
+    ws = torch.empty(ws_floats(G, nb), dtype=torch.float32, device=dev)
     rc = fn(_ptr_table({**t, **grads}), G, nb, ws.data_ptr(), _stream(dev))
     if rc != 0:
         _raise(lib, "bwd", rc)

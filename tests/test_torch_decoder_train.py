@@ -454,8 +454,8 @@ def test_cuda_f32_backward_matches_plain(setup, nb):
 
 def test_wrapper_entry_points_are_exported(monkeypatch):
     """Every C entry point the wrapper loads, per kind and storage type (the
-    launch, the pointer count, A4b's workspace size in floats), is exported
-    by its source."""
+    launch, the pointer count, the workspace size in floats of A4f and of
+    A4b), is exported by its source."""
     import os
     import re
 
@@ -483,39 +483,120 @@ def test_wrapper_entry_points_are_exported(monkeypatch):
             dt._lib(kind, sd)
             with pytest.raises(RuntimeError, match="launch failed: failed"):
                 dt._raise(lib, kind, 1)
-            assert len(lib.names) == (4 if kind == "bwd" else 3) and lib.names <= exported, (kind, sd, lib.names)
+            assert len(lib.names) == 4 and lib.names <= exported, (kind, sd, lib.names)
+            assert f"decoder_train_{kind}_workspace_floats_{dt._suffix(sd)}" in lib.names
 
 
 def test_compare_builds_names_the_a4_tensors_expected_to_differ():
-    """compare_builds names which A4 tensors the float32 FMA engine moves: dx
-    and the gradients from conv4's bias down, not A4f's out, mean and var nor
-    the conv5 and BN4 gradients; every other dtype and family stays bitwise."""
+    """compare_builds names which A4 tensors the float32 FMA forward moves:
+    all 22 (out, mean, var, dx and the 18 gradients, since every pre-BN plane
+    moves by rounding); nothing in bfloat16 nor in A2/A3, and A4b on shared
+    planes stays bitwise in both dtypes."""
     from electrocardio_panorama_tpu_torch import compare_builds as CB
 
     d = CB.a4_dump(dt, "float32", torch.device("cpu"), nb=2)
     moved = CB.EXPECTED_TO_DIFFER[("float32", "A4")]
-    assert len(moved) == 15 and set(moved) < set(d)
-    assert not {"A4 out", "A4 mean", "A4 var", "A4 grad w5", "A4 grad b5", "A4 grad g4", "A4 grad o4"} & set(moved)
+    assert len(moved) == 22 and set(moved) == set(d)
     assert set(CB.EXPECTED_TO_DIFFER) == {("float32", "A4")}
     same = CB.compare(d, d)
     assert CB.against_expectation(same, "bfloat16", "A4")["as_expected"]
     assert not CB.against_expectation(same, "float32", "A4")["as_expected"]
-    other = {k: (v + 1 if k in moved else v) for k, v in d.items()}
+    other = {k: v + 1 for k, v in d.items()}
     r = CB.against_expectation(CB.compare(d, other), "float32", "A4")
-    assert r["as_expected"] and r["expected_to_differ"] == moved and r["bitwise_equal"] == 7
+    assert r["as_expected"] and r["expected_to_differ"] == moved and r["bitwise_equal"] == 0
+    one_kept = {**other, "A4 grad w5": d["A4 grad w5"]}
+    assert not CB.against_expectation(CB.compare(d, one_kept), "float32", "A4")["as_expected"]
+    assert not CB.against_expectation(CB.compare(d, other), "bfloat16", "A4")["as_expected"]
+    for dtype in ("float32", "bfloat16"):
+        assert CB.EXPECTED_TO_DIFFER.get((dtype, "A2/A3"), []) == []
+        assert CB.EXPECTED_TO_DIFFER.get((dtype, "A4b on shared planes"), []) == []
 
 
 def test_compare_builds_a4_float64_distance():
     """compare_builds measures an A4 dump against a float64 pass of the plain
     version on the same seeded inputs: on the CPU the float32 plain version
-    lies within float32 rounding of it (out 1e-6, gradients L2 1e-4), and a
-    perturbed gradient is found."""
+    lies within float32 rounding of it (out 1e-6, moments 1e-5, gradients L2
+    1e-4), and a perturbed gradient or variance is found."""
     from electrocardio_panorama_tpu_torch import compare_builds as CB
 
     dev = torch.device("cpu")
     d, truth = CB.a4_dump(dt, "float32", dev, nb=2), CB.a4_float64_truth(dev, nb=2)
-    assert set(truth) == set(d) - {"A4 mean", "A4 var"} and truth["A4 out"].dtype == torch.float64
+    assert set(truth) == set(d) and truth["A4 out"].dtype == truth["A4 mean"].dtype == torch.float64
     r = CB.float64_distance(d, truth)
     assert r["out_max_abs"] < 1e-6 and r["worst_grad_l2"] < 1e-4, r
+    assert r["moments_within_1e-5"] and r["moments_max_abs"] < 1e-5, r
+    off = CB.float64_distance({**d, "A4 var": d["A4 var"] * (1 + 1e-3)}, truth)
+    assert not off["moments_within_1e-5"] and off["moments_max_abs"] > 1e-5, off
     bad = CB.float64_distance({**d, "A4 grad w3": d["A4 grad w3"] * 1.01}, truth)
     assert bad["worst_grad"] == "A4 grad w3" and abs(bad["worst_grad_l2"] - 1e-2) < 1e-3, bad
+
+
+def test_compare_builds_a4b_shared_planes_family():
+    """The family "A4b on shared planes" holds the 19 A4b tensors (prefix
+    "A4b "), apart from the A4 and A2/A3 families, and expects them bitwise
+    equal in both dtypes: one moved gradient breaks `as_expected`."""
+    from electrocardio_panorama_tpu_torch import compare_builds as CB
+
+    fam = "A4b on shared planes"
+    names = [f"A4b grad {k}" for k in CB.A4_GRADS]
+    assert CB.A4_GRADS == ["dx", *dt.WNAMES] and len(names) == 19
+    others = [p for f, ps in CB.FAMILIES.items() if f != fam for p in ps]
+    assert all(n.startswith(CB.FAMILIES[fam]) and not n.startswith(tuple(others)) for n in names)
+    d = {n: torch.full((3,), float(i)) for i, n in enumerate(names)}
+    for dtype in ("float32", "bfloat16"):
+        r = CB.against_expectation(CB.compare(d, dict(d)), dtype, fam)
+        assert r["as_expected"] and r["bitwise_equal"] == 19
+        moved = {**d, "A4b grad w3": torch.nextafter(d["A4b grad w3"], torch.tensor(100.0))}
+        assert not CB.against_expectation(CB.compare(d, moved), dtype, fam)["as_expected"]
+
+
+def test_chip_smoke_forward_entry_points_are_exported():
+    """Every decoder_train_fwd C entry that chip_smoke.py calls (the float32
+    forward engine's resources and workspace size) is exported by
+    csrc/decoder_train_fwd.cu."""
+    import os
+    import re
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    src = open(os.path.join(os.path.dirname(dt.__file__), "csrc", "decoder_train_fwd.cu")).read()
+    exported = set(re.findall(r'extern "C" [\w\s\*]*?\b(decoder_train_fwd_\w+)\(', src))
+    used = set(re.findall(r"\blib\.(decoder_train_fwd_\w+)", open(os.path.join(root, "chip_smoke.py")).read()))
+    assert {"decoder_train_fwd_fma_resources", "decoder_train_fwd_workspace_floats_f32"} <= used
+    assert used <= exported, used - exported
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nb", [32, 5])
+def test_cuda_f32_forward_fma_matches_plain_and_repeats(setup, nb):
+    """float32 A4f (its convs on the FMA engine) against the plain version at
+    the PERF.md section 2 bars: out max abs error 2e-5, moments within 1e-5
+    (relative and absolute), with the model's BN offsets and with every relu
+    open; every plane bitwise equal across a repeat launch; and A4b on these
+    kept planes bitwise equal to backward_cuda without planes (its own A4f
+    launch)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    from electrocardio_panorama_tpu_torch.ops import full_f32
+
+    w, x, dout = _cuda_inputs(setup[3], "float32", nb)
+    w_open = {k: (v + 8.0 if k[0] == "o" else v) for k, v in w.items()}
+    before = dt.LAUNCHES["fwd_float32"]
+    for ws in (w, w_open):
+        with torch.no_grad(), full_f32():
+            ref_out, ref_mean, ref_var = dt.train_decode_groups_plain(ws, x)
+        planes = dt.forward_cuda(ws, x)
+        again = dt.forward_cuda(ws, x)
+        torch.cuda.synchronize()
+        assert list(planes) == dt.PLANES
+        for k in dt.PLANES:
+            assert torch.equal(planes[k], again[k]), k
+            assert bool(torch.isfinite(planes[k]).all()), k
+        torch.testing.assert_close(planes["OUT"], ref_out, rtol=0, atol=2e-5)
+        torch.testing.assert_close(planes["MEAN"], ref_mean, rtol=1e-5, atol=1e-5)
+        torch.testing.assert_close(planes["VAR"], ref_var, rtol=1e-5, atol=1e-5)
+    assert dt.LAUNCHES["fwd_float32"] == before + 4
+    kept = dt.backward_cuda(w_open, x, dout, planes)
+    own = dt.backward_cuda(w_open, x, dout)
+    torch.cuda.synchronize()
+    for i, name in enumerate(["x", *dt.WNAMES]):
+        assert torch.equal(kept[i], own[i]), name
