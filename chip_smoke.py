@@ -33,7 +33,17 @@ result line:
                launch counts read around each run; each held against the
                same run without the kernels under test (same batches, same
                masks): per-step losses, and the params after one step;
-  6. summary — one JSON line naming every kernel with its numbers.
+  6. nefnet2_synth — the trainer on Nef-Net2 (MODEL.model model_nefnet2,
+               the shared single-lead tower) at batch 32, float32, eager
+               encoder, TPU.train_decoder fused: A4f/A4b once a step, A1 in
+               the eval epoch, held against the same run with the eager
+               decoders (losses, params after one step, eval rest views),
+               its step time and device busy ms; then the synthesis entry
+               point `synth_cli` (export-latents, fit-prior, generate 8 x 24
+               views) on the card from a seeded random Nef-Net checkpoint,
+               held against the same commands under --device cpu;
+  7. summary — one JSON line naming every kernel with its numbers and its
+               launches on the Nef-Net2 run (`launches_nefnet2`).
 The last line is {"ok": true, "device": {...}}.
 """
 
@@ -971,6 +981,178 @@ def train_phase(card: str, tmp: str) -> dict:
     return launches
 
 
+def nefnet2_synth_phase(card: str, tmp: str) -> dict:
+    """Nef-Net2 through the trainer, then synthesis from scratch:
+      * `main.main` with MODEL.model model_nefnet2 at batch 32 for
+        TRAIN_STEPS steps and one eval epoch, float32, the eager encoder and
+        TPU.train_decoder fused (A4f/A4b once a step, A1 in the eval epoch,
+        A2/A3 never), held against the same run with train_decoder and
+        eval_decoder xla: per-step losses, the params after one step, and an
+        eval step's outputs and rest views (A1 against the eager decode);
+        then the steady step time (CUDA events) and device busy ms;
+      * `synth_cli` export-latents (4 batches of 8), fit-prior and generate
+        (8 beats x 24 views) on the card from a seeded random Nef-Net
+        checkpoint, held against the same commands under --device cpu, and
+        generate under --device cpu on the card's prior (the same latents,
+        bit for bit) against the card's.
+    Returns the Nef-Net2 run's launches {"A1": n, "A4f": n, "A4b": n}."""
+    import shutil
+
+    from electrocardio_panorama_tpu_torch import main as train_main
+    from electrocardio_panorama_tpu_torch import synth_cli
+    from electrocardio_panorama_tpu_torch.config import load_cfg
+    from electrocardio_panorama_tpu_torch.data import BeatLoader, build_dataset
+    from electrocardio_panorama_tpu_torch.models import init_nefnet
+    from electrocardio_panorama_tpu_torch.ops.kernels import decoder_fused as a1
+    from electrocardio_panorama_tpu_torch.ops.kernels import decoder_train as a4
+    from electrocardio_panorama_tpu_torch.ops.kernels import encoder_fused as a2
+    from electrocardio_panorama_tpu_torch.synthesis import GaussianLatentPrior
+    from electrocardio_panorama_tpu_torch.training.checkpoint import CheckPointer
+    from electrocardio_panorama_tpu_torch.training.optim import get_optimizer
+    from electrocardio_panorama_tpu_torch.training.solver import Solver
+    from electrocardio_panorama_tpu_torch.utils.profiling import device_window
+
+    def cfg_for(dec, name):
+        return load_cfg("configs/nef_net_synthetic.yml", [
+            "output_dir", f"{tmp}/n2_{name}_{dec}", "DATA.synthetic_root", f"{tmp}/train_synth",
+            "DATA.synthetic_n_train", str(B * TRAIN_STEPS), "DATA.synthetic_n_test", str(TRAIN_N_TEST),
+            "DATA.batch_size", str(B), "SOLVER.epochs", "1", "TPU.steps_per_epoch", str(TRAIN_STEPS),
+            "MODEL.model", "model_nefnet2", "TPU.compute_dtype", "float32", "TPU.train_encoder", "auto",
+            "TPU.train_decoder", dec, "TPU.eval_decoder", "auto" if dec == "fused" else "xla"])
+
+    runs = {}
+    for dec in ("fused", "xla"):
+        for counter in (a1.LAUNCHES, a2.LAUNCHES, a4.LAUNCHES):
+            counter.clear()
+        torch.cuda.synchronize()
+        solver = train_main.main(cfg_for(dec, "train"), device="cuda")
+        torch.cuda.synchronize()
+        runs[dec] = (solver, {"A1": a1.LAUNCHES["float32"], "A2": a2.LAUNCHES["fwd_float32"],
+                              "A3": a2.LAUNCHES["bwd_float32"], "A4f": a4.LAUNCHES["fwd_float32"],
+                              "A4b": a4.LAUNCHES["bwd_float32"]})
+    (sf, counts), (se, counts_e) = runs["fused"], runs["xla"]
+    hf, he = sf.history[0], se.history[0]
+    lf, le = hf["train_losses"][:, 0], he["train_losses"][:, 0]
+    loss_rel = float(np.max(np.abs(lf - le) / np.abs(le)))
+
+    # one step of each from the same init on the same batch and masks, then
+    # both eval steps (A1 and eager rest views) on the eager run's stepped params
+    cfg = cfg_for("fused", "step")
+    batch = next(iter(BeatLoader(build_dataset(cfg, "train"), B, shuffle=True, drop_last=True, seed=cfg.seed)))
+    test_batch = next(iter(BeatLoader(build_dataset(cfg, "test"), B, shuffle=False, drop_last=True,
+                                      seed=cfg.seed + 1)))
+    stepped = {}
+    for dec in ("fused", "xla"):
+        solver = Solver(cfg_for(dec, "step"), use_writer=False, device="cuda")
+        params, bn, opt = solver.init_state()
+        p0 = {k: v.detach().clone() for k, v in params.items()}
+        bn, _ = solver.train_step(params, bn, opt, epoch=0, step=0, i1=1, i2=2, batch=batch)
+        stepped[dec] = (solver, p0, {k: v.detach() for k, v in params.items()}, bn)
+    (solver, p0, after_f, bn_f), (eager, _, after_e, bn_e) = stepped["fused"], stepped["xla"]
+    upd = torch.cat([(after_e[k] - p0[k]).flatten() for k in p0])
+    upd_rel = float(torch.cat([(after_f[k] - after_e[k]).flatten() for k in p0]).norm() / upd.norm())
+    evals = {}
+    for name, s_ in (("A1", solver), ("eager", eager)):  # the same stepped params and BN state
+        a1.LAUNCHES.clear()
+        evals[name] = (s_.eval_step(after_e, bn_e, test_batch), a1.LAUNCHES["float32"])
+    (ev_f, a1_eval), (ev_e, a1_eager) = evals["A1"], evals["eager"]
+    out_err, _ = compare(ev_f[0], ev_e[0])
+    rest_err, rest_corr = compare(ev_f[1], ev_e[1])
+
+    # the steady f32 step with A4 fused and the eager encoder
+    params = {k: v.clone().requires_grad_(True) for k, v in after_f.items()}
+    opt = get_optimizer(cfg, params)
+    batches = [b for _, b in zip(range(TRAIN_STEPS), BeatLoader(build_dataset(cfg, "train"), B, shuffle=True,
+                                                                 drop_last=True, seed=cfg.seed))]
+    state = {"bn": bn_f}
+
+    def run_all():
+        for i, b in enumerate(batches):
+            state["bn"], _ = solver.train_step(params, state["bn"], opt, epoch=1, step=i, i1=i % 3,
+                                               i2=(i + 1) % 3, batch=b)
+
+    run_all()  # warm-up
+    step_ms = cuda_ms(run_all, reps=3) / len(batches)
+    win = device_window(run_all, len(batches))
+
+    sc = hf["scalars"]
+    finite = all(np.isfinite(v) for v in sc.values()) and np.isfinite(hf["train_losses"]).all()
+    line = (f"Nef-Net2 float32, eager encoder, TPU.train_decoder fused vs xla/xla: {hf['train_steps']} steps at "
+            f"B={B} + eval epoch of {hf['eval_views']} views; losses {np.round(lf, 6).tolist()} vs "
+            f"{np.round(le, 6).tolist()}: max rel {loss_rel:.2e} (bar {TRAIN_LOSS_REL['float32']:g}); params "
+            f"after step 1: |kernels - eager| / |update| = {upd_rel:.2e} (bar {TRAIN_UPDATE_REL['float32']:g}); "
+            f"eval step on the eager run's stepped params: out max|diff| {out_err:.3e}, rest views (A1, "
+            f"{a1_eval} launch) "
+            f"max|A1 - eager| {rest_err:.3e} corr {rest_corr:.7f} (bar {F32_TOL:g}); psnr_gen "
+            f"{sc['psnr_gen']:.3f}; launches {' '.join(f'{k} {v}' for k, v in counts.items())} (eager run: "
+            f"{' '.join(f'{k} {v}' for k, v in counts_e.items())}); steady step {step_ms:.3f} ms (CUDA events), "
+            f"device busy {win['busy_ms']:.3f} ms per step (share {win['busy_share']:.3f}); on {card}")
+    ok = (finite and hf["train_steps"] == TRAIN_STEPS and loss_rel <= TRAIN_LOSS_REL["float32"]
+          and upd_rel <= TRAIN_UPDATE_REL["float32"] and rest_err <= F32_TOL and out_err <= F32_TOL
+          and tuple(ev_f[1].shape) == tuple(ev_e[1].shape) and bool(torch.isfinite(ev_f[1]).all())
+          and counts["A4f"] == counts["A4b"] == TRAIN_STEPS and counts["A1"] > 0 and a1_eval == 1
+          and counts["A2"] == counts["A3"] == 0 and a1_eager == 0 and not any(counts_e.values()))
+    if not ok:
+        log("nefnet2_synth", "FAIL " + line)
+        raise SystemExit(1)
+    log("nefnet2_synth", "ok " + line)
+    log("nefnet2_synth", "f32 Nef-Net2 step device ms by kernel: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in win["by_kernel"].items()))
+
+    # ------------------------------------------------ synthesis from scratch
+    out = f"{tmp}/synth_out"
+    opts = ["output_dir", out, "DATA.dataset", "synthetic", "DATA.synthetic_root", f"{tmp}/synth_corpus",
+            "DATA.synthetic_n_train", "2", "DATA.synthetic_n_test", "32"]
+    scfg = load_cfg("configs/synthesis_from_scratch.yml", opts)
+    p, s = init_nefnet(torch.Generator().manual_seed(scfg.seed), lead_num=3)
+    CheckPointer(os.path.join(out, scfg.desc)).save("best_valid", params=p, bn_state=s)
+    walls = {}
+
+    def synth(device, latents, *cmds):
+        for cmd, extra in cmds:
+            argv = [cmd, "--config-file", "configs/synthesis_from_scratch.yml", "--device", device, *extra,
+                    *opts, "latent_save_dir", latents]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            synth_cli.main(argv)
+            torch.cuda.synchronize()
+            walls[device, cmd, latents] = time.perf_counter() - t0
+        return np.load(f"{latents}/generated.npz")
+
+    gen_args = ["--n", "8", "--views", "24"]
+    cmds = (("export-latents", ["--max-batches", "4"]), ("fit-prior", []), ("generate", gen_args))
+    card_gen = synth("cuda", f"{tmp}/lat_cuda", *cmds)
+    synth("cuda", f"{tmp}/lat_cuda", ("generate", gen_args))  # warm: the second generate's wall time
+    cpu_gen = synth("cpu", f"{tmp}/lat_cpu", *cmds)
+    os.makedirs(f"{tmp}/lat_shared", exist_ok=True)
+    shutil.copy(f"{tmp}/lat_cuda/prior.npz", f"{tmp}/lat_shared/prior.npz")
+    shared_gen = synth("cpu", f"{tmp}/lat_shared", ("generate", gen_args))
+    # the same prior gives the same latents on the host whichever device decodes
+    draws = [GaussianLatentPrior.load(f"{tmp}/{d}/prior.npz").sample(np.random.default_rng(scfg.seed), 8)
+             for d in ("lat_cuda", "lat_shared")]
+    same_latents = all(np.array_equal(a, b) for a, b in zip(*draws))
+    pc, pq = np.load(f"{tmp}/lat_cuda/prior.npz"), np.load(f"{tmp}/lat_cpu/prior.npz")
+    prior_err = max(float(np.abs(pc[k] - pq[k]).max()) for k in ("mean_z1", "std_z1", "mean_z2", "std_z2"))
+    ecg = card_gen["ecg"]
+    err = float(np.abs(ecg - cpu_gen["ecg"]).max())
+    err_shared = float(np.abs(ecg - shared_gen["ecg"]).max())
+    good = (ecg.shape == (8, 24, 512) and np.isfinite(ecg).all() and ((ecg > 0) & (ecg < 1)).all()
+            and err <= F32_TOL and err_shared <= F32_TOL and same_latents
+            and np.array_equal(card_gen["views"], cpu_gen["views"]))
+    w = {k[:2]: v for k, v in walls.items() if k[2] == f"{tmp}/lat_cuda"}
+    line = (f"synth_cli on the card: export-latents (4 batches of 8) {w['cuda', 'export-latents']:.3f} s, "
+            f"fit-prior {w['cuda', 'fit-prior']:.3f} s, generate 8 x 24 views {w['cuda', 'generate']:.3f} s "
+            f"wall (in process, second call; --device cpu {walls['cpu', 'generate', f'{tmp}/lat_cpu']:.3f} s); "
+            f"generated {list(ecg.shape)}; card vs --device cpu: prior moments max|diff| {prior_err:.3e}, "
+            f"max|generated diff| {err:.3e}; on the card's prior (latents bitwise equal: {same_latents}) "
+            f"{err_shared:.3e} (bar {F32_TOL:g}); on {card}")
+    if not good:
+        log("nefnet2_synth", "FAIL " + line)
+        raise SystemExit(1)
+    log("nefnet2_synth", "ok " + line)
+    return {"A1": counts["A1"], "A4f": counts["A4f"], "A4b": counts["A4b"]}
+
+
 def compare(out, ref):
     err = float((out - ref).abs().max())
     corr = float(np.corrcoef(out.double().cpu().numpy().ravel(), ref.double().cpu().numpy().ravel())[0, 1])
@@ -1139,7 +1321,12 @@ def main() -> int:
         for name, n in train_phase(card, tmp).items():
             (enc_stats if name.startswith("encoder") else dec_stats)[name]["launches"] = n
 
-    # --------------------------------------------------------------- 6. summary
+        # ----------------------------------------------------- 6. nefnet2_synth
+        n2 = nefnet2_synth_phase(card, tmp)
+    nefnet2_launches = {"decoder_basis_f32": n2["A1"], "decoder_train_fwd_f32": n2["A4f"],
+                        "decoder_train_bwd_f32": n2["A4b"]}
+
+    # --------------------------------------------------------------- 7. summary
     kernels = [{
         "name": f"decoder_basis_{key}", "route": "cuda", "source": A1_SOURCE, "replaces": A1_REPLACES,
         "launches": st["launches"], "max_abs_err": st["max_abs_err"], "ms": st["ms"],
@@ -1156,6 +1343,8 @@ def main() -> int:
             "max_abs_err": st["max_abs_err"], "ms": st["ms"], "plain_ms": st["plain_ms"],
             "bound_ms": st["bound_ms"], "bound_by": st["bound_by"], "library_ms": None,
         })
+    for k in kernels:  # launches on the Nef-Net2 train run (nefnet2_synth)
+        k["launches_nefnet2"] = nefnet2_launches.get(k["name"], 0)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

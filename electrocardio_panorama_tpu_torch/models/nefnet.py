@@ -79,35 +79,30 @@ class NefNet(nn.Module):
             "1": Conv((128 * g7, 64, 2), 64 * g7, fan_in=64 * 2),
             "2": model_block(64 * g7, 128 * g7, g7),
         })
-        # decoder keys follow the reference nn.Sequential: 0 and 2 are Upsample
-        self.decoder = nn.ModuleDict({
-            "1": double_conv(256, 128),
-            "3": double_conv(128, 64),
-            "4": conv(1, 64, 3, bias=True),
-        })
+        self.decoder = decoder()
 
-    def reset_parameters(self, generator: torch.Generator) -> None:
-        for m in self.modules():
-            if isinstance(m, (Conv, BatchNorm)):
-                m.reset(generator)
 
-    def flat(self) -> tuple[dict, dict]:
-        """(params, bn_state) flat dicts of detached tensors."""
-        params = {k: v.detach() for k, v in self.named_parameters()}
-        state = {k: v.detach() for k, v in self.named_buffers()}
-        return params, state
+def decoder() -> nn.ModuleDict:
+    # keys follow the reference nn.Sequential: 0 and 2 are Upsample
+    return nn.ModuleDict({"1": double_conv(256, 128), "3": double_conv(128, 64), "4": conv(1, 64, 3, bias=True)})
 
 
 def init_nefnet(generator: torch.Generator, *, lead_num: int, theta_encoder_len: int = 1,
                 dtype=torch.float32, device="cpu") -> tuple[dict, dict]:
     """Returns (params, state): flat dicts keyed by torch-style names. The
     draws come from `generator` (a CPU generator) and then move to `device`."""
-    net = NefNet(lead_num, theta_encoder_len)
-    net.reset_parameters(generator)
-    params, state = net.flat()
-    params = {k: v.to(device=device, dtype=dtype) for k, v in params.items()}
-    state = {k: v.to(device=device, dtype=dtype if v.is_floating_point() else v.dtype)
-             for k, v in state.items()}
+    return init_tree(NefNet(lead_num, theta_encoder_len), generator, dtype=dtype, device=device)
+
+
+def init_tree(net: nn.Module, generator: torch.Generator, *, dtype=torch.float32, device="cpu"):
+    """(params, state) of a module tree of `Conv` / `BatchNorm` holders, each
+    reset from `generator` in registration order, cast and moved."""
+    for m in net.modules():
+        if isinstance(m, (Conv, BatchNorm)):
+            m.reset(generator)
+    params = {k: v.detach().to(device=device, dtype=dtype) for k, v in net.named_parameters()}
+    state = {k: v.detach().to(device=device, dtype=dtype if v.is_floating_point() else v.dtype)
+             for k, v in net.named_buffers()}
     return params, state
 
 
@@ -242,16 +237,31 @@ def nefnet_apply(p: dict, s: dict, x, input_thetas, query_theta, rois, rest_thet
     # (model_nefnet.py:154-157)
     shuffle_z1 = lat.z1.reshape(B, L, 128, FEAT_LEN)[:, i1]
     shuffle_z2 = lat.z2.reshape(B, L, 128, FEAT_LEN)[:, i2]
-    shuffle_patient_all = torch.cat([shuffle_z1, lat.z2_mean], dim=1)
-    shuffle_lead_all = torch.cat([lat.z1_mean, shuffle_z2], dim=1)
-    gate_q = query_gates(p, query_theta, theta_encoder_len=theta_encoder_len)  # [B, 256]
+    return decode_heads(p, s, lat.latent_all, torch.cat([shuffle_z1, lat.z2_mean], dim=1),
+                        torch.cat([lat.z1_mean, shuffle_z2], dim=1), query_theta, rest_theta,
+                        theta_encoder_len=theta_encoder_len, train=train, rest_decode_fn=rest_decode_fn,
+                        train_decode_fn=train_decode_fn)
 
+
+def decode_heads(p: dict, s: dict, latent_all, shuffle_patient_all, shuffle_lead_all, query_theta,
+                 rest_theta=None, *, theta_encoder_len: int = 1, train: bool = False, rest_decode_fn=None,
+                 train_decode_fn=None):
+    """The decoder half of the forward, shared by Nef-Net and Nef-Net2: the
+    three latents [B, 256, 128] gated by the query view, decoded.
+
+    train: ((out, shuffle_p, shuffle_l), new_state), one group-major batch
+           with per-group BN statistics and the running stats chained in the
+           reference's call order (model_nefnet.py:167-176), or through
+           `train_decode_fn`;
+    eval:  ((out, shuffle_p, shuffle_l, rest_out), state), BN on running
+           statistics, so the three decodes batch into one pass; the rest
+           views through `rest_decode_fn` or decode_views.
+    """
+    B = latent_all.shape[0]
+    gate_q = query_gates(p, query_theta, theta_encoder_len=theta_encoder_len)  # [B, 256]
     if train:
-        # pred / shuffle_patient / shuffle_lead as one group-major batch with
-        # per-group BN statistics and the running stats chained in the
-        # reference's call order (model_nefnet.py:167-176)
         gx = gate_q[:, :, None]
-        stacked = torch.cat([gx * lat.latent_all, gx * shuffle_patient_all, gx * shuffle_lead_all], dim=0)
+        stacked = torch.cat([gx * latent_all, gx * shuffle_patient_all, gx * shuffle_lead_all], dim=0)
         if train_decode_fn is not None:
             outs, u = train_decode_fn(p, s, stacked)
         else:
@@ -261,15 +271,14 @@ def nefnet_apply(p: dict, s: dict, x, input_thetas, query_theta, rois, rest_thet
         new_s.update(u)
         return (outs[0], outs[1], outs[2]), new_s
 
-    # eval: BN running statistics, so all three decodes batch into one pass
-    stacked = torch.stack([lat.latent_all, shuffle_patient_all, shuffle_lead_all], dim=1)
+    stacked = torch.stack([latent_all, shuffle_patient_all, shuffle_lead_all], dim=1)
     outs3 = decoder_apply(p, s, (gate_q[:, None, :, None] * stacked).reshape(B * 3, 256, FEAT_LEN))
     outs3 = torch.sigmoid(outs3 / 3.0).reshape(B, 3, 1, SEQ_LEN)
     out, shuffle_p, shuffle_l = outs3[:, 0], outs3[:, 1], outs3[:, 2]
     if rest_decode_fn is not None:
-        rest_out = rest_decode_fn(lat.latent_all, rest_theta)
+        rest_out = rest_decode_fn(latent_all, rest_theta)
     else:
-        rest_out = decode_views(p, s, lat.latent_all, rest_theta, theta_encoder_len=theta_encoder_len)
+        rest_out = decode_views(p, s, latent_all, rest_theta, theta_encoder_len=theta_encoder_len)
     return (out, shuffle_p, shuffle_l, rest_out), s
 
 

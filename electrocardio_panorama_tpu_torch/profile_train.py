@@ -33,7 +33,6 @@ import torch
 from electrocardio_panorama_tpu_torch.config import load_cfg
 from electrocardio_panorama_tpu_torch.data import BeatLoader, build_dataset
 from electrocardio_panorama_tpu_torch.models import NefNetLatents
-from electrocardio_panorama_tpu_torch.ops.kernels.encoder_fused import draw_masks
 from electrocardio_panorama_tpu_torch.training.precision import cast_floats, cast_floats_f32
 from electrocardio_panorama_tpu_torch.training.solver import Solver, step_seed
 from electrocardio_panorama_tpu_torch.utils import resolve_device
@@ -50,7 +49,7 @@ def split_step(solver: Solver, params, bn_state, opt, batch, step: int, clock):
     data, it, tt, rois, tv, _ = solver._tensors(batch, ("data", "input_theta", "target_theta", "rois",
                                                         "target_view", "noise"))
     gen = torch.Generator(device=solver.device).manual_seed(step_seed(cfg.seed, 0, step))
-    masks = draw_masks(gen, data.shape[0], cfg.DATA.lead_num, dtype=solver.compute_dtype)
+    masks = solver.draw_masks(gen, data.shape[0])
     opt.zero_grad(set_to_none=True)
     clock("inputs_to_device_and_masks")
     held = {}

@@ -4,6 +4,11 @@ Reference demo.ipynb builds a dense 84-view grid (7 theta x 12 phi) and
 decodes each view in turn (model_nefnet.py:185-190). Here every batch encodes
 once and decodes all its views together; with `use_fused=True` the decode is
 the streamed-basis CUDA kernel (ops/kernels/decoder_fused.py).
+
+Synthesis from scratch: the reference ships the latent -> ECG decode but no
+latent source (README.md:19-22); `GaussianLatentPrior` is a diagonal
+Gaussian fitted over dataset latents, and `synthesize_from_scratch` decodes
+its samples (synth_cli.py drives both).
 """
 
 from __future__ import annotations
@@ -140,3 +145,79 @@ def render_full_record(gen: PanoramaGenerator, dataset, record_index: int,
     n = dataset.num_beats(record_index)
     batch = collate([dataset.get_beat(record_index, b, rng) for b in range(n)])
     return gen.render(batch["data"], batch["input_theta"], batch["rois"], views), batch
+
+
+# ------------------------------------------------------- from-scratch synthesis
+class GaussianLatentPrior:
+    """Diagonal Gaussian over (z1, z2_grid) latents, fitted on dataset encodes:
+    the latent source for synthesis from scratch (the reference exposes
+    gen_ecg but no sampler). Moments are numpy arrays per example position;
+    `sample` draws with numpy, so the port and the JAX package sample the same
+    latents, bit for bit, from the same prior and seed."""
+
+    def __init__(self, mean_z1, std_z1, mean_z2, std_z2, rois_template):
+        self.mean_z1, self.std_z1 = mean_z1, std_z1
+        self.mean_z2, self.std_z2 = mean_z2, std_z2
+        self.rois_template = rois_template  # [7, 2] representative segmentation
+
+    @classmethod
+    def from_latents(cls, z1: np.ndarray, z2: np.ndarray, rois_template):
+        eps = 1e-6
+        return cls(z1.mean(0), z1.std(0) + eps, z2.mean(0), z2.std(0) + eps, rois_template)
+
+    @classmethod
+    @torch.no_grad()
+    def fit(cls, model_def, params, loader, max_batches: int = 8):
+        """Encode up to `max_batches` batches (phase='gen' latents: z1 and the
+        pre-reverse z2 grid) on the params' device and fit the moments."""
+        device = next(iter(params.values())).device
+        host1, host2, z1s, z2s, rois, pending = [], [], [], [], None, 0
+        for bi, batch in enumerate(loader):
+            if bi >= max_batches:
+                break
+            z1, z2 = model_def.encode(
+                params, *(torch.as_tensor(batch[k], device=device) for k in ("data", "input_theta", "rois")),
+                stop_before_reverse=True)
+            # on the device within a bounded window (_DEVICE_ACCUM_BYTES)
+            z1s.append(z1)
+            z2s.append(z2)
+            pending += z1.numel() * z1.element_size() + z2.numel() * z2.element_size()
+            if pending >= _DEVICE_ACCUM_BYTES:
+                host1.extend(z.cpu().numpy() for z in z1s)
+                host2.extend(z.cpu().numpy() for z in z2s)
+                z1s, z2s, pending = [], [], 0
+            if rois is None:
+                rois = batch["rois"][0]
+        host1.extend(z.cpu().numpy() for z in z1s)
+        host2.extend(z.cpu().numpy() for z in z2s)
+        return cls.from_latents(np.concatenate(host1), np.concatenate(host2), rois)
+
+    def sample(self, rng: np.random.Generator, n: int, temperature: float = 1.0):
+        z1 = self.mean_z1 + temperature * self.std_z1 * rng.standard_normal((n, *self.mean_z1.shape))
+        z2 = self.mean_z2 + temperature * self.std_z2 * rng.standard_normal((n, *self.mean_z2.shape))
+        rois = np.broadcast_to(self.rois_template, (n, *self.rois_template.shape))
+        return z1.astype(np.float32), z2.astype(np.float32), rois.copy()
+
+    def save(self, path: str) -> None:
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        np.savez(path, mean_z1=self.mean_z1, std_z1=self.std_z1,
+                 mean_z2=self.mean_z2, std_z2=self.std_z2, rois=self.rois_template)
+
+    @classmethod
+    def load(cls, path: str):
+        z = np.load(path)
+        return cls(z["mean_z1"], z["std_z1"], z["mean_z2"], z["std_z2"], z["rois"])
+
+
+@torch.no_grad()
+def synthesize_from_scratch(model_def, params, bn_state, prior: GaussianLatentPrior,
+                            views: np.ndarray, n: int, seed: int = 0,
+                            temperature: float = 1.0) -> torch.Tensor:
+    """Sample n latents from the prior and decode them under `views` [V, 2]
+    through the model's gen_ecg (the eager decode_views; reference gen_ecg,
+    model_nefnet.py:196-218), on the params' device. Returns [n, V, 512]."""
+    device = next(iter(params.values())).device
+    z1, z2, rois = prior.sample(np.random.default_rng(seed), n, temperature=temperature)
+    v = np.broadcast_to(np.asarray(views, np.float32)[None], (n, len(views), 2)).copy()
+    z1, z2, v, rois = (torch.as_tensor(a, device=device) for a in (z1, z2, v, rois))
+    return model_def.gen_ecg(params, bn_state, z1, z2, v, rois)

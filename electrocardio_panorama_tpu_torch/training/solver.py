@@ -125,8 +125,11 @@ class Solver:
     # ----------------------------------------------------------------- knobs
     def _nefnet_only(self, knob: str) -> None:
         if self.cfg.MODEL.model != "model_nefnet":
-            raise ValueError(f"{knob}='fused' supports model_nefnet only (the fused encoder "
-                             "mirrors its per-lead tower/z-block)")
+            raise ValueError(
+                f"{knob}='fused' supports model_nefnet only: kernels A2/A3 compute Nef-Net's "
+                "encoder, one private tower per lead through conv groups and lead-grouped "
+                "z-blocks; Nef-Net2 folds the leads into the batch through one shared tower "
+                "and adds the single_conv_z1/z2 convs, another function (use 'xla')")
 
     def _train_encoder_mode(self) -> str:
         """TPU.train_encoder: 'auto' picks the fused pair A2/A3 on CUDA with
@@ -165,6 +168,21 @@ class Solver:
             raise ValueError(f"unknown TPU.eval_encoder {enc!r} (use 'xla' or 'fused')")
         return None
 
+    @staticmethod
+    def _encode_hook(fn) -> dict:
+        """The `encode_fn` keyword for the fused encoder, which only
+        Nef-Net's apply takes (_nefnet_only)."""
+        return {"encode_fn": fn} if fn is not None else {}
+
+    def draw_masks(self, gen: torch.Generator, B: int):
+        """The step's pre-scaled dropout masks in the model's layout. Nef-Net's
+        are the fused encoder's (kernels A2/A3 and the eager encoder take the
+        same tuple, ops.kernels.encoder_fused.draw_masks); Nef-Net2 draws its
+        own over the leads folded into the batch."""
+        if self.cfg.MODEL.model == "model_nefnet":
+            return draw_masks(gen, B, self.cfg.DATA.lead_num, dtype=self.compute_dtype)
+        return self.model.draw_masks(gen, B, dtype=self.compute_dtype)
+
     def _precision(self):
         """float32 steps run forward and backward at full float32: cuDNN's
         backward convolutions run inside loss.backward(), so TF32 stays off
@@ -190,7 +208,7 @@ class Solver:
         cfg = self.cfg
         data, it, tt, rois, tv, noise = self._tensors(batch, _TRAIN_KEYS)
         gen = torch.Generator(device=self.device).manual_seed(step_seed(cfg.seed, epoch, step))
-        masks = draw_masks(gen, data.shape[0], cfg.DATA.lead_num, dtype=self.compute_dtype)
+        masks = self.draw_masks(gen, data.shape[0])
         opt.zero_grad(set_to_none=True)
         with self._precision():
             p = cast_floats(params, self.compute_dtype) if self.mixed else params
@@ -198,7 +216,7 @@ class Solver:
                 data, it, tt = (t.to(self.compute_dtype) for t in (data, it, tt))
             (out, sp, sl), new_bn = self.model.apply(
                 p, bn_state, data, it, tt, rois, phase="train", masks=masks, shuffle_idx=(i1, i2),
-                encode_fn=self._train_enc_fn, train_decode_fn=self._train_dec_fn)
+                train_decode_fn=self._train_dec_fn, **self._encode_hook(self._train_enc_fn))
             if self.mixed:
                 out, sp, sl = (t.float() for t in (out, sp, sl))
                 new_bn = cast_floats_f32(new_bn)
@@ -234,7 +252,7 @@ class Solver:
         with full_f32():
             (out, sp, sl, rest_out), _ = self.model.apply(
                 params, bn_state, data, it, tt, rois, rest_theta=rt, phase="test", shuffle_idx=(0, 0),
-                rest_decode_fn=rest_fn, encode_fn=self._eval_enc_fn)
+                rest_decode_fn=rest_fn, **self._encode_hook(self._eval_enc_fn))
             rest_out = rest_out.float()
             # the unsupervised term over the last 4 rest views: the reference
             # hardcodes 4 whatever gen_num is (solver.py:192-193)

@@ -19,7 +19,7 @@ import torch
 
 from electrocardio_panorama_tpu.models import NefNetDef as JaxNefNetDef
 from electrocardio_panorama_tpu_torch.convert import params_from_jax
-from electrocardio_panorama_tpu_torch.models import NefNet, NefNetDef, build_model, init_nefnet
+from electrocardio_panorama_tpu_torch.models import NefNet, NefNet2Def, NefNetDef, build_model, init_nefnet
 from electrocardio_panorama_tpu_torch.config import get_cfg
 from electrocardio_panorama_tpu_torch.training.torch_import import split_params_state
 
@@ -109,10 +109,10 @@ def test_build_model_registry():
     cfg.DATA.lead_num = 3
     assert build_model(cfg).lead_num == 3
     cfg.MODEL.model = "model_nefnet2"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(cfg)
+    m2 = build_model(cfg)
+    assert isinstance(m2, NefNet2Def) and m2.lead_num == 3
     cfg.MODEL.model = "modelv2"
-    with pytest.raises(ValueError, match="model name error"):
+    with pytest.raises(ValueError, match="registered: 'model_nefnet', 'model_nefnet2'"):
         build_model(cfg)
 
 
