@@ -42,8 +42,19 @@ result line:
                point `synth_cli` (export-latents, fit-prior, generate 8 x 24
                views) on the card from a seeded random Nef-Net checkpoint,
                held against the same commands under --device cpu;
-  7. summary — one JSON line naming every kernel with its numbers and its
-               launches on the Nef-Net2 run (`launches_nefnet2`).
+  7. parallel_annotate — data parallelism and the annotate entry point:
+               `main.main` under TPU.mesh_shape [1] (an NCCL group of one) at
+               batch 32 with both fused pairs, float32 and bfloat16, bitwise
+               against the same run without a mesh (params after the steps,
+               losses, eval metrics) with the same A2/A3/A4f/A4b launches,
+               and each step's time and MFU (utils/flops.py); the
+               view-sharded panorama on a (1, 1) mesh through A1, bitwise
+               against `PanoramaGenerator.render` on 32 beats x 84 views;
+               the annotate CLI's segment / validate / show on records of
+               the synthetic corpus, and a dataset built from them;
+  8. summary — one JSON line naming every kernel with its numbers and its
+               launches on the Nef-Net2 run (`launches_nefnet2`) and under
+               the mesh (`launches_parallel`).
 The last line is {"ok": true, "device": {...}}.
 """
 
@@ -63,9 +74,6 @@ import traceback
 import numpy as np
 import torch
 
-H100_BYTES_PER_S = 3.35e12      # HBM3, H100 SXM data sheet
-H100_F32_FLOPS = 67e12          # float32 outside the tensor cores
-H100_BF16_FLOPS = 989e12        # bf16 dense tensor cores
 F32_TOL, BF16_TOL, BF16_CORR = 2e-5, 1e-4, 0.999
 # two bfloat16 decode forms against each other: each carries its own rounding
 # (BF16_CORR against float32 each), so twice the distance from 1
@@ -158,7 +166,9 @@ TAIL_MACS = 128 * 128 * 3 * 256 + 64 * 128 * 3 * 512 + 64 * 64 * 3 * 512 + 64 * 
 def bound_ms(flops: float, n_bytes: float, dtype) -> tuple[float, str]:
     """Least time for this work: bytes (each input read once, each output
     written once) over the HBM rate vs operations over the peak of the
-    storage type."""
+    storage type (the H100 peaks of utils/flops.py)."""
+    from electrocardio_panorama_tpu_torch.utils.flops import H100_BF16_FLOPS, H100_BYTES_PER_S, H100_F32_FLOPS
+
     peak = H100_BF16_FLOPS if dtype == torch.bfloat16 else H100_F32_FLOPS
     t_ops, t_bytes = flops / peak, n_bytes / H100_BYTES_PER_S
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
@@ -1153,6 +1163,171 @@ def nefnet2_synth_phase(card: str, tmp: str) -> dict:
     return {"A1": counts["A1"], "A4f": counts["A4f"], "A4b": counts["A4b"]}
 
 
+def parallel_annotate_phase(card: str, tmp: str) -> dict:
+    """Data parallelism and the annotate entry point:
+      * `main.main` at batch 32 for TRAIN_STEPS steps and one eval epoch with
+        TPU.train_encoder and TPU.train_decoder fused, float32 and bfloat16,
+        under TPU.mesh_shape [1] (the Solver starts an NCCL group of one)
+        against the same run without a mesh: params and BN state after the
+        steps, per-step losses and the eval scalars bitwise equal, and the
+        same A2/A3/A4f/A4b launches; then each Solver's steady step time
+        (CUDA events, mesh and no mesh in turns) and the MFU of the
+        utils/flops.py train-step count;
+      * the view-sharded panorama (`parallel.build_sharded_panorama`) on a
+        (1, 1) mesh through A1 against `PanoramaGenerator.render` on 32 beats
+        x 84 views, float32 and bfloat16: bitwise equal, one A1 launch each;
+      * the annotate CLI (`annotation.cli`) segment / validate / show on
+        records of the synthetic corpus, then the port's `build_dataset` on
+        the segmented labels.
+    Returns the mesh runs' launches by kernel row name."""
+    import io
+    import shutil
+
+    from electrocardio_panorama_tpu_torch import main as train_main
+    from electrocardio_panorama_tpu_torch.annotation import cli as annotate_cli
+    from electrocardio_panorama_tpu_torch.config import load_cfg
+    from electrocardio_panorama_tpu_torch.data import BeatLoader, build_dataset
+    from electrocardio_panorama_tpu_torch.models import build_model, init_nefnet
+    from electrocardio_panorama_tpu_torch.ops.kernels import decoder_fused as a1
+    from electrocardio_panorama_tpu_torch.ops.kernels import decoder_train as a4
+    from electrocardio_panorama_tpu_torch.ops.kernels import encoder_fused as a2
+    from electrocardio_panorama_tpu_torch.parallel import build_sharded_panorama, make_mesh
+    from electrocardio_panorama_tpu_torch.synthesis import PanoramaGenerator, theta_grid
+    from electrocardio_panorama_tpu_torch.training.checkpoint import CheckPointer
+    from electrocardio_panorama_tpu_torch.utils import flops
+
+    def cfg_for(dtype, mesh):
+        cfg = load_cfg("configs/nef_net_synthetic.yml", [
+            "output_dir", f"{tmp}/mesh{len(mesh)}_{dtype}", "DATA.synthetic_root", f"{tmp}/train_synth",
+            "DATA.synthetic_n_train", str(B * TRAIN_STEPS), "DATA.synthetic_n_test", str(TRAIN_N_TEST),
+            "DATA.batch_size", str(B), "SOLVER.epochs", "1", "TPU.steps_per_epoch", str(TRAIN_STEPS),
+            "TPU.compute_dtype", dtype, "TPU.train_encoder", "fused", "TPU.train_decoder", "fused"])
+        cfg.TPU.mesh_shape = list(mesh)
+        return cfg
+
+    launches = {}
+    for dtype in ("float32", "bfloat16"):
+        key = "f32" if dtype == "float32" else "bf16"
+        runs = {}
+        for mesh in ((), (1,)):
+            for counter in (a1.LAUNCHES, a2.LAUNCHES, a4.LAUNCHES):
+                counter.clear()
+            torch.cuda.synchronize()
+            cfg = cfg_for(dtype, mesh)
+            solver = train_main.main(cfg, device="cuda")
+            torch.cuda.synchronize()
+            counts = {"A1": a1.LAUNCHES["float32"] + a1.LAUNCHES["bfloat16"],
+                      "A2": a2.LAUNCHES[f"fwd_{dtype}"], "A3": a2.LAUNCHES[f"bwd_{dtype}"],
+                      "A4f": a4.LAUNCHES[f"fwd_{dtype}"], "A4b": a4.LAUNCHES[f"bwd_{dtype}"]}
+            params, bn, _, extras = CheckPointer(os.path.join(cfg.output_dir, cfg.desc)).load()
+            runs[mesh] = (solver, counts, params, bn, extras)
+        (s0, c0, p0, b0, e0), (s1, c1, p1, b1, e1) = runs[()], runs[(1,)]
+        h0, h1 = s0.history[0], s1.history[0]
+        same = (all(torch.equal(p0[k], p1[k]) for k in p0) and all(torch.equal(b0[k], b1[k]) for k in b0)
+                and np.array_equal(h0["train_losses"], h1["train_losses"]) and h0["scalars"] == h1["scalars"]
+                and e0 == e1)
+
+        # steady steps of both Solvers on the same batches, in turns
+        batches = [b for _, b in zip(range(TRAIN_STEPS), BeatLoader(
+            build_dataset(cfg, "train"), B, shuffle=True, drop_last=True, seed=cfg.seed))]
+        step_ms = {}
+        for solver in (s0, s1, s1, s0):
+            params, bn, opt = solver.init_state()
+            state = {"bn": bn}
+
+            def run_all():
+                for i, b in enumerate(batches):
+                    state["bn"], _ = solver.train_step(params, state["bn"], opt, epoch=1, step=i, i1=i % 3,
+                                                       i2=(i + 1) % 3, batch=b)
+
+            step_ms.setdefault(solver.mesh is not None, []).append(cuda_ms(run_all, reps=3) / len(batches))
+        peak = flops.H100_F32_FLOPS if dtype == "float32" else flops.H100_BF16_FLOPS
+        mfu = {m: [flops.mfu_pct(flops.TRAIN_STEP_FLOPS_B32, t / 1e3, peak) for t in ts] for m, ts in step_ms.items()}
+        line = (f"{dtype}, both pairs fused, TPU.mesh_shape [1] vs no mesh: {h1['train_steps']} steps at B={B} + "
+                f"eval epoch; params, BN state, losses {np.round(h1['train_losses'][:, 0], 6).tolist()} and eval "
+                f"scalars (psnr_gen {h1['scalars']['psnr_gen']:.4f}) bitwise equal: {same}; launches "
+                f"{' '.join(f'{k} {v}' for k, v in c1.items())} (no mesh: "
+                f"{' '.join(f'{k} {v}' for k, v in c0.items())}); steady step "
+                f"{' / '.join(f'{t:.3f}' for t in step_ms[True])} ms under the mesh, "
+                f"{' / '.join(f'{t:.3f}' for t in step_ms[False])} ms without (CUDA events); MFU of "
+                f"{flops.TRAIN_STEP_FLOPS_B32:.4g} FLOPs a step against {peak / 1e12:g} TFLOP/s: "
+                f"{' / '.join(f'{m:.3f}' for m in mfu[True])} % under the mesh, "
+                f"{' / '.join(f'{m:.3f}' for m in mfu[False])} % without; on {card}")
+        ok = (same and c0 == c1 and all(c1[k] == TRAIN_STEPS for k in ("A2", "A3", "A4f", "A4b")) and c1["A1"] > 0
+              and np.isfinite(h1["train_losses"]).all())
+        if not ok:
+            log("parallel_annotate", "FAIL " + line)
+            raise SystemExit(1)
+        log("parallel_annotate", "ok " + line)
+        launches.update({f"encoder_fwd_{key}": c1["A2"], f"encoder_bwd_{key}": c1["A3"],
+                         f"decoder_train_fwd_{key}": c1["A4f"], f"decoder_train_bwd_{key}": c1["A4b"]})
+
+    # ------------------------------------------- the view-sharded panorama
+    cfg = cfg_for("float32", ())
+    model = build_model(cfg)
+    p0, s0 = init_nefnet(torch.Generator().manual_seed(cfg.seed), lead_num=3, device="cuda")
+    batch = next(iter(BeatLoader(build_dataset(cfg, "test"), B, shuffle=False, drop_last=True, seed=cfg.seed)))
+    views = theta_grid(7, 12)
+    inputs = [torch.as_tensor(batch[k], device="cuda") for k in ("data", "input_theta", "rois")]
+    mesh = make_mesh((1, 1), ("data", "view"), device="cuda")
+    for name, dt in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        ref = PanoramaGenerator(model, p0, s0, compute_dtype=dt, use_fused=True, device="cuda").render(
+            batch["data"], batch["input_theta"], batch["rois"], views)
+        a1.LAUNCHES.clear()
+        render = build_sharded_panorama(model, mesh, use_fused=True, compute_dtype=dt)
+        out = render(p0, s0, *inputs, torch.as_tensor(views, device="cuda"))
+        torch.cuda.synchronize()
+        n = a1.LAUNCHES[name]
+        line = (f"view-sharded panorama on a (1, 1) mesh, {name}: {list(out.shape)} through A1 ({n} launch) "
+                f"bitwise equal to PanoramaGenerator.render: {torch.equal(out, ref)}; on {card}")
+        if not (torch.equal(out, ref) and n == 1 and tuple(out.shape) == (B, len(views), 512)):
+            log("parallel_annotate", "FAIL " + line)
+            raise SystemExit(1)
+        log("parallel_annotate", "ok " + line)
+        launches[f"decoder_basis_{'f32' if name == 'float32' else 'bf16'}"] = n
+
+    # ---------------------------------------------------- the annotate CLI
+    npy_dir = f"{tmp}/train_synth/npy_data/tianchi_train_round1"
+    truth_dir = f"{tmp}/train_synth/tianchi_interval"
+    label_dir = f"{tmp}/annotated"
+    os.makedirs(label_dir, exist_ok=True)
+    names = sorted(os.listdir(npy_dir))[:4]
+    beats, true_beats, printed = 0, 0, io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(printed):
+        for name in names:
+            rec, label = f"{npy_dir}/{name}", f"{label_dir}/{name[:-4]}.json"
+            codes = (annotate_cli.main(["segment", rec, "--out", label]),
+                     annotate_cli.main(["validate", label, "--record", rec]), annotate_cli.main(["show", label]))
+            if codes != (0, 0, 0):
+                log("parallel_annotate", f"FAIL annotate CLI on {name}: exit codes {codes}")
+                raise SystemExit(1)
+            beats += len(json.load(open(label))["P on"])
+            true_beats += len(json.load(open(f"{truth_dir}/{name[:-4]}.json"))["P on"])
+    secs = time.perf_counter() - t0
+    with open(f"{label_dir}/list.txt", "w") as f:
+        f.write("".join(f"{name[:-4]}.json\n" for name in names))
+    shutil.copy(f"{label_dir}/list.txt", f"{label_dir}/test_list.txt")
+    dcfg = load_cfg("configs/nef_net_synthetic.yml", [
+        "output_dir", f"{tmp}/annotated_out", "DATA.dataset", "tianchi", "DATA.train_label_path",
+        f"{label_dir}/list.txt", "DATA.test_label_path", f"{label_dir}/test_list.txt", "DATA.train_data_root",
+        npy_dir, "DATA.train_label_root", label_dir])
+    ds = build_dataset(dcfg, "train")
+    meta = ds.__getitem__(0, rng=np.random.default_rng(0))
+    good = (meta["data"].shape == (3, 512) and meta["rois"][0, 0] == 0 and meta["rois"][-1, 1] == 512
+            and printed.getvalue().count("OK:") == len(names) and beats > 0)
+    line = (f"annotate CLI segment / validate / show on {len(names)} records of the synthetic corpus in {secs:.3f} s: "
+            f"{beats} beats found ({true_beats} in the corpus' own labels); build_dataset on the segmented labels: "
+            f"{len(ds)} records, a train example's data {list(meta['data'].shape)}, rois from "
+            f"{int(meta['rois'][0, 0])} to {int(meta['rois'][-1, 1])}")
+    if not good:
+        log("parallel_annotate", "FAIL " + line)
+        raise SystemExit(1)
+    log("parallel_annotate", "ok " + line)
+    torch.distributed.destroy_process_group()  # the group of one that the mesh runs started
+    return launches
+
+
 def compare(out, ref):
     err = float((out - ref).abs().max())
     corr = float(np.corrcoef(out.double().cpu().numpy().ravel(), ref.double().cpu().numpy().ravel())[0, 1])
@@ -1323,10 +1498,13 @@ def main() -> int:
 
         # ----------------------------------------------------- 6. nefnet2_synth
         n2 = nefnet2_synth_phase(card, tmp)
+
+        # ------------------------------------------------- 7. parallel_annotate
+        parallel_launches = parallel_annotate_phase(card, tmp)
     nefnet2_launches = {"decoder_basis_f32": n2["A1"], "decoder_train_fwd_f32": n2["A4f"],
                         "decoder_train_bwd_f32": n2["A4b"]}
 
-    # --------------------------------------------------------------- 7. summary
+    # --------------------------------------------------------------- 8. summary
     kernels = [{
         "name": f"decoder_basis_{key}", "route": "cuda", "source": A1_SOURCE, "replaces": A1_REPLACES,
         "launches": st["launches"], "max_abs_err": st["max_abs_err"], "ms": st["ms"],
@@ -1343,8 +1521,9 @@ def main() -> int:
             "max_abs_err": st["max_abs_err"], "ms": st["ms"], "plain_ms": st["plain_ms"],
             "bound_ms": st["bound_ms"], "bound_by": st["bound_by"], "library_ms": None,
         })
-    for k in kernels:  # launches on the Nef-Net2 train run (nefnet2_synth)
+    for k in kernels:  # launches on the Nef-Net2 train run and under the mesh
         k["launches_nefnet2"] = nefnet2_launches.get(k["name"], 0)
+        k["launches_parallel"] = parallel_launches.get(k["name"], 0)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -106,11 +106,13 @@ def model_block_apply(p: dict, prefix: str, x, *, groups: int, mask=None, train:
     return torch.relu(out + residual)
 
 
-def double_conv_apply(p: dict, s: dict, prefix: str, x, *, train: bool = False, bn_groups: int = 1):
+def double_conv_apply(p: dict, s: dict, prefix: str, x, *, train: bool = False, bn_groups: int = 1,
+                      bn_sync=None):
     """Eval: BN normalizes with the running statistics; returns the output.
     Train: batch statistics, per group when `bn_groups` > 1 (x group-major,
-    ops.group_batch_norm1d); returns (out, state updates), where the updates
-    hold the new running stats and `num_batches_tracked + bn_groups`."""
+    ops.group_batch_norm1d), over every rank's batch under `bn_sync`;
+    returns (out, state updates), where the updates hold the new running
+    stats and `num_batches_tracked + bn_groups`."""
     updates = {}
 
     def bn(h, i):
@@ -119,9 +121,9 @@ def double_conv_apply(p: dict, s: dict, prefix: str, x, *, train: bool = False, 
         if not train:
             return batch_norm1d(*args)
         if bn_groups > 1:
-            out, m, v = group_batch_norm1d(*args, groups=bn_groups)
+            out, m, v = group_batch_norm1d(*args, groups=bn_groups, sync=bn_sync)
         else:
-            out, m, v = batch_norm1d(*args, train=True)
+            out, m, v = batch_norm1d(*args, train=True, sync=bn_sync)
         updates[f"{prefix}.{i}.running_mean"] = m
         updates[f"{prefix}.{i}.running_var"] = v
         updates[f"{prefix}.{i}.num_batches_tracked"] = s[f"{prefix}.{i}.num_batches_tracked"] + bn_groups

@@ -107,22 +107,23 @@ def init_tree(net: nn.Module, generator: torch.Generator, *, dtype=torch.float32
 
 
 # -------------------------------------------------------------------- decoder
-def decoder_apply(p: dict, s: dict, x, *, train: bool = False, bn_groups: int = 1):
+def decoder_apply(p: dict, s: dict, x, *, train: bool = False, bn_groups: int = 1, bn_sync=None):
     """Upsample -> DoubleConv(256,128) -> Upsample -> DoubleConv(128,64) ->
     Conv(64,1): x [N, 256, 128] -> [N, 1, 512] logits. Eval returns the
     logits; train returns (logits, BN state updates), with per-group batch
     statistics when `bn_groups` > 1 (x group-major [G*B, ...]: G sequential
-    decoder calls in one batched pass, blocks.double_conv_apply)."""
+    decoder calls in one batched pass, blocks.double_conv_apply), summed over
+    the ranks under `bn_sync` (parallel.sharding.BatchStatSync)."""
     if not train:
         h = double_conv_apply(p, s, "decoder.1.double_conv", upsample_linear_x2(x))
         h = double_conv_apply(p, s, "decoder.3.double_conv", upsample_linear_x2(h))
         return conv1d(h, p["decoder.4.weight"], p["decoder.4.bias"], padding=1)
     updates = {}
     h, u = double_conv_apply(p, s, "decoder.1.double_conv", upsample_linear_x2(x), train=True,
-                             bn_groups=bn_groups)
+                             bn_groups=bn_groups, bn_sync=bn_sync)
     updates.update(u)
     h, u = double_conv_apply(p, s, "decoder.3.double_conv", upsample_linear_x2(h), train=True,
-                             bn_groups=bn_groups)
+                             bn_groups=bn_groups, bn_sync=bn_sync)
     updates.update(u)
     return conv1d(h, p["decoder.4.weight"], p["decoder.4.bias"], padding=1), updates
 

@@ -12,7 +12,7 @@ from electrocardio_panorama_tpu_torch.ops.convs import (
     max_pool1d,
 )
 from electrocardio_panorama_tpu_torch.ops.resample import upsample_linear_x2
-from electrocardio_panorama_tpu_torch.ops.roi import roi_align_1d, roi_align_ramp, roi_reverse_1d
+from electrocardio_panorama_tpu_torch.ops.roi import roi_align_1d, roi_align_ramp, roi_pool_1d, roi_reverse_1d
 from electrocardio_panorama_tpu_torch.ops.theta import angular_encode, theta_feature_dim
 
 __all__ = [
@@ -30,5 +30,6 @@ __all__ = [
     "upsample_linear_x2",
     "roi_align_1d",
     "roi_align_ramp",
+    "roi_pool_1d",
     "roi_reverse_1d",
 ]

@@ -13,6 +13,7 @@ which pins TF32 off for the op and restores the process-wide flags after.
 from __future__ import annotations
 
 import contextlib
+import math
 
 import torch
 import torch.nn.functional as F
@@ -79,18 +80,32 @@ def dropout(x, rate: float, mask: torch.Tensor | None, train: bool):
     return x * mask.to(x.dtype)
 
 
+def _batch_moments(x, dims, sync):
+    """(mean, biased variance, count) of x over `dims`, in x's dtype. With
+    `sync` (parallel.sharding.BatchStatSync) the sums and sums of squares,
+    taken in float32, are summed over the ranks first: the moments of the
+    global batch, as the JAX package's `axis_name` gives them."""
+    n = math.prod(x.shape[d] for d in dims)
+    if sync is None:
+        return x.mean(dim=dims), x.var(dim=dims, unbiased=False), n
+    xf = x.float()
+    s = sync(torch.stack([xf.sum(dim=dims), (xf * xf).sum(dim=dims)]))
+    n *= sync.size
+    mean = s[0] / n
+    return mean.to(x.dtype), (s[1] / n - mean * mean).to(x.dtype), n
+
+
 def batch_norm1d(x, scale, offset, running_mean, running_var, *, train: bool = False,
-                 momentum: float = 0.1, eps: float = 1e-5):
+                 momentum: float = 0.1, eps: float = 1e-5, sync=None):
     """torch BatchNorm1d on [B, C, L]. Eval: normalizes with the running
     statistics and returns the output. Train: normalizes with the biased batch
-    statistics over (B, L) and returns (out, new_running_mean,
+    statistics over (B, L), over every rank's batch under `sync`
+    (`_batch_moments`), and returns (out, new_running_mean,
     new_running_var); the running variance takes the unbiased variance."""
     if not train:
         inv = torch.rsqrt(running_var + eps)
         return (x - running_mean[None, :, None]) * (inv * scale)[None, :, None] + offset[None, :, None]
-    n = x.shape[0] * x.shape[2]
-    mean = x.mean(dim=(0, 2))
-    var = x.var(dim=(0, 2), unbiased=False)
+    mean, var, n = _batch_moments(x, (0, 2), sync)
     unbiased = var * n / max(n - 1, 1)
     new_mean = (1 - momentum) * running_mean + momentum * mean.detach()
     new_var = (1 - momentum) * running_var + momentum * unbiased.detach()
@@ -100,18 +115,17 @@ def batch_norm1d(x, scale, offset, running_mean, running_var, *, train: bool = F
 
 
 def group_batch_norm1d(x, scale, offset, running_mean, running_var, *, groups: int,
-                       momentum: float = 0.1, eps: float = 1e-5):
+                       momentum: float = 0.1, eps: float = 1e-5, sync=None):
     """`groups` train-mode BatchNorm1d calls batched into one op: x is
     group-major [G*B, C, L]; group g normalizes with its own biased batch
-    statistics, and the running statistics take the G sequential EMA updates
-    in closed form, r_G = (1-m)^G r_0 + m * sum_g (1-m)^(G-1-g) stat_g, in
-    the reference's order. Returns (out, new_running_mean, new_running_var)."""
+    statistics (over every rank's batch under `sync`), and the running
+    statistics take the G sequential EMA updates in closed form,
+    r_G = (1-m)^G r_0 + m * sum_g (1-m)^(G-1-g) stat_g, in the reference's
+    order. Returns (out, new_running_mean, new_running_var)."""
     gb, c, L = x.shape
     b = gb // groups
     xg = x.reshape(groups, b, c, L)
-    n = b * L
-    mean = xg.mean(dim=(1, 3))  # [G, C]
-    var = xg.var(dim=(1, 3), unbiased=False)
+    mean, var, n = _batch_moments(xg, (1, 3), sync)  # [G, C]
     unbiased = var * n / max(n - 1, 1)
     keep = (1 - momentum) ** groups
     w = momentum * (1 - momentum) ** torch.arange(groups - 1, -1, -1, dtype=var.dtype, device=x.device)

@@ -14,6 +14,7 @@ The reference loops over batch and ROI around `F.grid_sample` and
   resample is a batched matmul against a per-beat lerp matrix [R*S, T] with
   two non-zeros per column, so it needs no gather or scatter (whose CUDA
   backward would use atomics).
+* `roi_pool_1d` reproduces the reference `roi_pooling` (unused by Nef-Net).
 """
 
 from __future__ import annotations
@@ -81,3 +82,23 @@ def roi_reverse_1d(x, rois, *, spatial_scale: float = 128 / 512, out_len: int = 
                            segments=R, grid=S).to(x.dtype)
     with precise(x):
         return torch.bmm(x.reshape(B, C, R * S), m)
+
+
+def roi_pool_1d(x, rois, *, size: int = 8, spatial_scale: float = 1.0):
+    """Reference `roi_pooling` (roi_pooling_1d.py:5-35): adaptive max pool of
+    each inclusive slice x[..., r0 : r1+1] to `size` bins, as a bin-membership
+    mask reduction. Not on the Nef-Net forward path (the reference defines but
+    never calls it). x [B, C, L], rois [B, R, 2] -> [B, C, R, size]."""
+    L = x.shape[2]
+    scaled = torch.floor(rois.to(torch.float32) * spatial_scale).to(torch.int64)
+    r0 = scaled[..., 0]  # [B, R]
+    # the slice x[r0 : r1+1] ends at L at most (slicing clips r1+1 == L+1)
+    n = (torch.clamp(scaled[..., 1] + 1, max=L) - r0)[..., None].to(torch.float32)  # [B, R, 1]
+    k = torch.arange(size, dtype=torch.float32, device=x.device)
+    # adaptive_max_pool1d bin k over a length-n slice: [floor(k*n/size), ceil((k+1)*n/size))
+    lo = torch.floor(k * n / size).to(torch.int64) + r0[..., None]  # [B, R, size]
+    hi = torch.ceil((k + 1) * n / size).to(torch.int64) + r0[..., None]
+    t = torch.arange(L, device=x.device)
+    mask = (t >= lo[..., None]) & (t < hi[..., None])  # [B, R, size, L]
+    neg = torch.tensor(float("-inf"), dtype=x.dtype, device=x.device)
+    return torch.where(mask[:, None], x[:, :, None, None, :], neg).amax(dim=-1)

@@ -18,6 +18,7 @@ import torch
 from electrocardio_panorama_tpu_torch.cli import base_parser, cfg_from_args
 from electrocardio_panorama_tpu_torch.data import BeatLoader, build_dataset
 from electrocardio_panorama_tpu_torch.models import build_model
+from electrocardio_panorama_tpu_torch.parallel import ensure_initialized
 from electrocardio_panorama_tpu_torch.synthesis import PanoramaGenerator, plot_panorama, theta_grid
 from electrocardio_panorama_tpu_torch.training.checkpoint import CheckPointer
 from electrocardio_panorama_tpu_torch.utils import resolve_device, seed_everything
@@ -26,6 +27,7 @@ from electrocardio_panorama_tpu_torch.utils import resolve_device, seed_everythi
 def main(cfg, n_theta=7, n_phi=12, out_path=None, plot_path=None, max_batches=None,
          batch_size=2, use_fused=False, device=None, plain=False):
     device = resolve_device(device)
+    ensure_initialized(device)  # a no-op without a launcher
     seed_everything(cfg.seed)
     ckpt = CheckPointer(os.path.join(cfg.output_dir, cfg.desc))
     loaded = ckpt.load(cfg.MODEL.resume or None, best_valid=not cfg.MODEL.resume)

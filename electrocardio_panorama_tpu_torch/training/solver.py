@@ -17,7 +17,13 @@ the caller names it.
   * dropout masks come from a per-step torch.Generator seeded from
     (seed, epoch, step), and the standin shuffle indices from a per-epoch
     numpy stream, so a resume at an epoch reproduces both streams, and the
-    fused and eager encoders see the same masks.
+    fused and eager encoders see the same masks;
+  * under TPU.mesh_shape, data parallelism over torch.distributed, one
+    process per device (parallel/): each rank steps on its slice of the
+    global batch with its rows of the full-batch masks, the eager decoder's
+    BatchNorm moments cover the global batch, gradients, loss components and
+    eval metrics are averaged over the ranks, and rank 0 alone takes the run
+    lock, writes scalars and checkpoints and paints.
 
 Checkpoint cadence and best-model selection mirror the reference: every epoch
 saved as epoch_{n}.pkl, best tracked by test psnr_gen into best_valid.pkl,
@@ -37,6 +43,15 @@ from electrocardio_panorama_tpu_torch.models import build_loss, build_model
 from electrocardio_panorama_tpu_torch.ops import angular_encode, full_f32
 from electrocardio_panorama_tpu_torch.ops.kernels.decoder_train import make_train_decode_fn
 from electrocardio_panorama_tpu_torch.ops.kernels.encoder_fused import draw_masks, make_fused_encode_fn
+from electrocardio_panorama_tpu_torch.parallel import (
+    BatchStatSync,
+    all_reduce_mean_,
+    local_batch_slice,
+    make_mesh,
+    process_count,
+    process_index,
+    synced_train_decode_fn,
+)
 from electrocardio_panorama_tpu_torch.training import metrics as M
 from electrocardio_panorama_tpu_torch.training.checkpoint import CheckPointer
 from electrocardio_panorama_tpu_torch.training.optim import (
@@ -76,12 +91,19 @@ def step_seed(seed: int, epoch: int, step: int) -> int:
     return int(np.random.SeedSequence([seed, epoch, step, 0xD809]).generate_state(1)[0])
 
 
+def local_rows(masks, rows: slice, batch: int):
+    """This rank's rows of the global batch's masks (m6 [6, batch*k, ...],
+    mc20 and mc22 [batch*k, ...], k rows per beat: 1 for Nef-Net, the leads
+    for Nef-Net2), so that the topology does not change the draws."""
+    m6, mc20, mc22 = masks
+    k = mc20.shape[0] // batch
+    sl = slice(rows.start * k, rows.stop * k)
+    return m6[:, sl].contiguous(), mc20[sl].contiguous(), mc22[sl].contiguous()
+
+
 def check_ported_knobs(cfg) -> None:
     """Knobs whose paths this port has not reached raise, naming their ROADMAP
     item; they never run something else silently."""
-    if list(cfg.TPU.mesh_shape):
-        raise NotImplementedError("TPU.mesh_shape (data parallelism over a device mesh) is not "
-                                  "ported yet: ROADMAP.md Queue A item 9")
     backend = cfg.TPU.checkpoint_backend
     if backend == "orbax":
         raise NotImplementedError("TPU.checkpoint_backend='orbax' is not ported yet: ROADMAP.md "
@@ -106,8 +128,16 @@ class Solver:
         if self.compute_dtype not in (torch.float32, torch.bfloat16):
             raise ValueError(f"TPU.compute_dtype {cfg.TPU.compute_dtype!r}: use float32 or bfloat16")
         self.mixed = self.compute_dtype != torch.float32
+        # TPU.mesh_shape: every mesh axis splits the batch over the ranks
+        self.mesh = (make_mesh(cfg.TPU.mesh_shape, cfg.TPU.mesh_axes, self.device)
+                     if list(cfg.TPU.mesh_shape) else None)
+        if self.mesh is None and process_count() > 1:
+            raise ValueError(f"{process_count()} processes need TPU.mesh_shape over all of them "
+                             f"(e.g. [{process_count()}]) so that they share one model")
+        self.world = process_count() if self.mesh is not None else 1
+        self.rank0 = process_index() == 0
         self.writer = ScalarWriter(os.path.join(cfg.output_dir, "tf_logs")
-                                   if use_writer and self.desc != "debug" else None)
+                                   if use_writer and self.desc != "debug" and self.rank0 else None)
         self.train_encoder = self._train_encoder_mode()
         self._train_enc_fn = (make_fused_encode_fn(cfg.DATA.lead_num, cfg.MODEL.theta_L,
                                                    ckpt=cfg.TPU.encoder_ckpt)
@@ -115,8 +145,10 @@ class Solver:
         # TPU.train_decoder 'fused': the grouped decodes through A4f/A4b, in
         # the compute dtype (on a CPU tensor the pair's plain version)
         self.train_decoder = cfg.TPU.train_decoder
-        self._train_dec_fn = (make_train_decode_fn(self.compute_dtype)
-                              if self.train_decoder == "fused" else None)
+        # the eager decode under a mesh of several ranks: BatchNorm over the
+        # global batch; A4f normalizes each rank's sub-batch with its own moments
+        self._train_dec_fn = (make_train_decode_fn(self.compute_dtype) if self.train_decoder == "fused"
+                              else synced_train_decode_fn(BatchStatSync()) if self.world > 1 else None)
         self.eval_decoder = self._eval_decoder_mode()
         self._eval_enc_fn = self._eval_encode_fn()
         # per epoch: train losses [steps, 4], host-clock times, scalars
@@ -208,7 +240,10 @@ class Solver:
         cfg = self.cfg
         data, it, tt, rois, tv, noise = self._tensors(batch, _TRAIN_KEYS)
         gen = torch.Generator(device=self.device).manual_seed(step_seed(cfg.seed, epoch, step))
-        masks = self.draw_masks(gen, data.shape[0])
+        batch_all = data.shape[0] * self.world  # every rank draws the global batch's masks
+        masks = self.draw_masks(gen, batch_all)
+        if self.world > 1 and masks is not None:
+            masks = local_rows(masks, local_batch_slice(batch_all), batch_all)
         opt.zero_grad(set_to_none=True)
         with self._precision():
             p = cast_floats(params, self.compute_dtype) if self.mixed else params
@@ -224,9 +259,17 @@ class Solver:
                 out = out + noise[:, None, :]
             loss, lo1, lo2, lo3 = self.loss(out, sp, sl, tv[:, None, :], cfg)
             loss.backward()
+        if self.mesh is not None:
+            all_reduce_mean_([p.grad for p in params.values() if p.grad is not None])
         opt.step()
         new_bn = {k: v.detach() for k, v in new_bn.items()}
-        return new_bn, torch.stack([loss, lo1, lo2, lo3]).detach().float()
+        lvec = torch.stack([loss, lo1, lo2, lo3]).detach().float()
+        if self.mesh is not None:
+            # A4f's moments are each rank's own: averaging the running stats
+            # they chained keeps the replicas one model
+            own = [v for v in new_bn.values() if v.is_floating_point()] if self.train_decoder == "fused" else []
+            all_reduce_mean_([lvec, *own])
+        return new_bn, lvec
 
     @torch.no_grad()
     def eval_step(self, params: dict, bn_state: dict, batch: dict):
@@ -268,6 +311,8 @@ class Solver:
                 metrics = torch.stack([pv[:, -gen_num:].mean(), pv[:, :-gen_num].mean(),
                                        sv[:, -gen_num:].mean(), sv[:, :-gen_num].mean()])
                 single = torch.stack([pv[:, -gen_num:].mean(0), sv[:, -gen_num:].mean(0)], dim=1)
+        if self.mesh is not None:  # means over the global batch
+            all_reduce_mean_([losses, metrics, single])
         return out, rest_out, losses, metrics, single
 
     # ------------------------------------------------------------ epoch loop
@@ -291,7 +336,7 @@ class Solver:
                 losses.append(lvec)
             else:
                 _, rest_out, lvec, met4, single = self.eval_step(params, bn_state, batch)
-                n_views += rest_out.shape[0] * rest_out.shape[1]
+                n_views += rest_out.shape[0] * rest_out.shape[1] * self.world
                 losses.append(lvec)
                 metrics_all.append(met4)
                 if single.shape[0]:
@@ -321,14 +366,19 @@ class Solver:
 
     # ----------------------------------------------------------------- train
     def _acquire_run_lock(self):
-        """Exclusive advisory lock on the run directory: two trainers on one
-        output_dir would interleave epoch checkpoints and scalars.jsonl rows
-        without an error. The OS drops the lock on any exit."""
+        """Exclusive advisory lock on the run directory, taken by rank 0: two
+        trainers on one output_dir would interleave epoch checkpoints and
+        scalars.jsonl rows without an error. The file is opened without
+        truncating and takes this process's pid only once the lock is held,
+        so a refused trainer leaves the holder's pid line. The OS drops the
+        lock on any exit."""
         import fcntl
 
+        if not self.rank0:
+            return None
         os.makedirs(self.cfg.output_dir, exist_ok=True)
         path = os.path.join(self.cfg.output_dir, ".train.lock")
-        f = open(path, "w")
+        f = open(path, "a")
         try:
             fcntl.flock(f, fcntl.LOCK_EX | fcntl.LOCK_NB)
         except OSError:
@@ -337,6 +387,7 @@ class Solver:
                 f"another trainer holds {path}: refusing to run two trainers on one output_dir "
                 "(they interleave epoch checkpoints and scalars.jsonl rows); pick a different "
                 "output_dir or stop the other run") from None
+        f.truncate(0)
         f.write(f"pid {os.getpid()}\n")
         f.flush()
         return f
@@ -346,7 +397,8 @@ class Solver:
         try:
             return self._train_locked(dl_train, dl_test)
         finally:
-            lock.close()  # closing the fd releases the flock
+            if lock is not None:
+                lock.close()  # closing the fd releases the flock
 
     def restore(self):
         """(params, bn_state, optimizer, start epoch, best psnr_gen): a fresh
@@ -426,10 +478,11 @@ class Solver:
                 best_psnr_gen = psnr_gen
             extras = {"psnr_gen": psnr_gen, "psnr_reg": psnr_reg, "epoch": epoch,
                       "best_test_psnr_gen": best_psnr_gen}
-            opt_saved = state_by_key(opt, params)
-            ckpt.save(f"epoch_{epoch}", params=params, bn_state=bn_state, opt_state=opt_saved, **extras)
-            if is_best:
-                ckpt.save("best_valid", params=params, bn_state=bn_state, opt_state=opt_saved, **extras)
+            if self.rank0:  # the replicas hold one model
+                opt_saved = state_by_key(opt, params)
+                ckpt.save(f"epoch_{epoch}", params=params, bn_state=bn_state, opt_state=opt_saved, **extras)
+                if is_best:
+                    ckpt.save("best_valid", params=params, bn_state=bn_state, opt_state=opt_saved, **extras)
         return {k: v.detach() for k, v in params.items()}, bn_state
 
     def _start_profile(self, profile_dir: str):
@@ -473,3 +526,58 @@ class Solver:
         met = te["metrics"].mean(axis=0)
         print("psnr_gen:{}, psnr_reg:{}, ssim_gen:{}, ssim_reg:{}".format(*met))
         return {"psnr_gen": met[0], "psnr_reg": met[1], "ssim_gen": met[2], "ssim_reg": met[3]}
+
+    # ----------------------------------------------------------------- paint
+    def paint(self, target, pred, input_data=None, epoch=None, flag="train"):
+        """Waveform-grid PNG dumps (reference solver.py:247-277), one
+        `{epoch}_{flag}/{i}.png` per sample; rank 0 only."""
+        if not self.rank0:
+            return
+        import matplotlib
+
+        matplotlib.use("Agg")
+        import matplotlib.pyplot as plt
+
+        out_dir = os.path.join(self.output_dir, f"{epoch}_{flag}")
+        os.makedirs(out_dir, exist_ok=True)
+        for i in range(len(target)):
+            tgt = np.atleast_2d(target[i])
+            prd = np.atleast_2d(pred[i])
+            rows = tgt.shape[0] + (len(input_data[i]) if input_data is not None else 0)
+            fig, axes = plt.subplots(rows, 1, figsize=(16, 2 * rows), squeeze=False)
+            r = 0
+            for j in range(tgt.shape[0]):
+                axes[r][0].plot(tgt[j])
+                axes[r][0].plot(prd[j], color="orange")
+                r += 1
+            if input_data is not None:
+                for j in range(len(input_data[i])):
+                    axes[r][0].plot(input_data[i][j])
+                    r += 1
+            fig.savefig(os.path.join(out_dir, f"{i}.png"), format="png")
+            plt.close(fig)
+
+    def paint_for_other_method(self, target, pred, input_data=None, epoch=None, flag="train"):
+        """Side-by-side target/pred grid (reference solver.py:279-302):
+        target/pred [B, R, 512], one row per view, target left, pred right;
+        rank 0 only. The reference's `paint_for_mit` (solver.py:304-327) is
+        the same function, so both names share it."""
+        if not self.rank0:
+            return
+        import matplotlib
+
+        matplotlib.use("Agg")
+        import matplotlib.pyplot as plt
+
+        out_dir = os.path.join(self.output_dir, f"{epoch}_{flag}")
+        os.makedirs(out_dir, exist_ok=True)
+        for i in range(len(target)):
+            rows = target[i].shape[0]
+            fig, axes = plt.subplots(rows, 2, figsize=(32, 3 * rows), squeeze=False)
+            for ind in range(rows):
+                axes[ind][0].plot(target[i][ind])
+                axes[ind][1].plot(pred[i][ind])
+            fig.savefig(os.path.join(out_dir, f"{i}.png"), format="png")
+            plt.close(fig)
+
+    paint_for_mit = paint_for_other_method

@@ -2,7 +2,10 @@
 
 Rules checked:
   * importing every module of `electrocardio_panorama_tpu_torch` (in a fresh
-    interpreter) loads neither `jax` nor `electrocardio_panorama_tpu`;
+    interpreter), the annotation, parallel and utils modules among them,
+    loads neither `jax` nor `electrocardio_panorama_tpu`, nor matplotlib or
+    sklearn (the card's machine has neither; they load inside the plot
+    helpers only);
   * no module of the port, and not chip_smoke.py, imports either (AST scan);
   * a checkpoint the JAX package wrote with optimizer state loads in the port
     without importing jax or optax;
@@ -35,6 +38,10 @@ from electrocardio_panorama_tpu_torch.utils import resolve_device
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG_DIR = os.path.dirname(port.__file__)
 FORBIDDEN = ("jax", "jaxlib", "optax", "electrocardio_panorama_tpu")
+LAZY = ("matplotlib", "sklearn")
+NEW_MODULES = ("annotation", "annotation.auto_segment", "annotation.cli", "annotation.interactive",
+               "annotation.schema", "parallel", "parallel.mesh", "parallel.multihost", "parallel.sharding",
+               "utils.flops", "utils.transforms")
 
 
 def port_modules():
@@ -56,9 +63,11 @@ def test_importing_every_port_module_loads_no_jax():
     assert len(mods) >= 25
     for kernel_module in ("decoder_fused", "decoder_train", "encoder_fused", "build"):
         assert f"{port.__name__}.ops.kernels.{kernel_module}" in mods
+    for module in NEW_MODULES:
+        assert f"{port.__name__}.{module}" in mods
     code = (f"import importlib, sys, json\nfor m in {mods!r}: importlib.import_module(m)\n"
             "print(json.dumps(sorted(k for k in sys.modules if k.split('.')[0] in "
-            f"{FORBIDDEN!r})))")
+            f"{FORBIDDEN + LAZY!r})))")
     proc = run_clean(code)
     assert proc.returncode == 0, proc.stderr
     assert json.loads(proc.stdout.strip().splitlines()[-1]) == []

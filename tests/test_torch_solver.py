@@ -116,6 +116,27 @@ def test_run_lock_rejects_second_trainer(base_cfg, tmp_path):
     b._acquire_run_lock().close()
 
 
+def test_run_lock_refusal_keeps_the_holders_pid(base_cfg, tmp_path, monkeypatch):
+    """A refused trainer leaves the holder's `pid N` line: the file is opened
+    without truncating and takes a pid only once its lock is held. Under a
+    mesh only rank 0 takes the lock."""
+    c = base_cfg.clone()
+    c.output_dir = str(tmp_path)
+    a, b = S.Solver(c, use_writer=False, device="cpu"), S.Solver(c, use_writer=False, device="cpu")
+    path = tmp_path / ".train.lock"
+    path.write_text("pid 1\nstale line\n")
+    lock = a._acquire_run_lock()
+    holder = f"pid {os.getpid()}\n"
+    assert path.read_text() == holder
+    monkeypatch.setattr(S.os, "getpid", lambda: 999999)  # the second trainer's pid
+    with pytest.raises(RuntimeError, match="another trainer"):
+        b._acquire_run_lock()
+    assert path.read_text() == holder
+    lock.close()
+    b.rank0 = False
+    assert b._acquire_run_lock() is None
+
+
 def test_empty_epoch_warns(base_cfg, tmp_path, capsys):
     c = base_cfg.clone()
     c.DATA.batch_size = 10_000
@@ -157,7 +178,7 @@ def test_explicit_resume_path_must_exist(base_cfg, tmp_path):
 
 
 @pytest.mark.parametrize("key,value,err", [
-    ("mesh_shape", [2], NotImplementedError),
+    ("mesh_shape", [2], ValueError),
     ("checkpoint_backend", "orbax", NotImplementedError),
     ("train_decoder", "pallas", ValueError),
     ("train_decoder", "auto", ValueError),
