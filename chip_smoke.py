@@ -14,8 +14,10 @@ result line:
                encoder_ckpt off/tower/full and a repeat launch; A4f/A4b (the
                fused train decoder) at 3 groups of 32 for the output, the
                batch moments, dx and all 18 parameter gradients, bitwise
-               across a repeat launch, float32 A4f's and A4b's device ms by
-               kernel, their FMA engine's TFLOP/s and resources, and both
+               across a repeat launch, bfloat16 A4f's moments within the
+               float64-anchored bar on 16 input sets, float32 A4f's and
+               A4b's device ms by kernel, their FMA engine's TFLOP/s and
+               resources, and both
                float32 sides' out, moments and gradient distance from a
                float64 pass; float32 and bfloat16, timed with CUDA events;
   4. render  — the port's render entry point (`render.main`) on a generated
@@ -52,9 +54,17 @@ result line:
                against `PanoramaGenerator.render` on 32 beats x 84 views;
                the annotate CLI's segment / validate / show on records of
                the synthetic corpus, and a dataset built from them;
-  8. summary — one JSON line naming every kernel with its numbers and its
-               launches on the Nef-Net2 run (`launches_nefnet2`) and under
-               the mesh (`launches_parallel`).
+  8. lead_parallel — lead tensor parallelism on a (1, 1, 1) (data, lead,
+               view) mesh (an NCCL group of one) at batch 32: 4 steps of
+               `build_3d_train_step` in float32 and bfloat16 against the
+               single-process eager step on the same batches (dropout off),
+               whether each is bitwise, both steps' ms; the lead-parallel
+               panorama against encode + decode_views on 32 beats x 84
+               views; no kernel launches (the lead path is eager);
+  9. summary — one JSON line naming every kernel with its numbers and its
+               launches on the Nef-Net2 run (`launches_nefnet2`), under
+               the mesh (`launches_parallel`) and on the lead path
+               (`launches_lead`).
 The last line is {"ok": true, "device": {...}}.
 """
 
@@ -62,6 +72,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import functools
 import json
 import os
 import re
@@ -122,7 +133,10 @@ ENC_F32_E2E_L2, ENC_F32_E2E_CORR = 5e-3, 0.9999
 # the bar is L2 relative 2e-4. The conv biases before a BN get a gradient of
 # rounding noise on both sides (the batch mean cancels them): |g| <= 1e-3.
 # bfloat16: output max abs error 2e-3 and corr > 0.9999, moments within 1e-3,
-# gradients at the encoder's bfloat16 bars.
+# gradients at the encoder's bfloat16 bars; and on the 16 input sets of
+# ops/kernels/decoder_train.py BF16_MOMENTS_BAR the kernel's and the plain
+# version's moments each within that bar of the float64 pass (allclose form,
+# `moments_distance`), the kernel within DEC_BF16_STAT of the plain version.
 DEC_F32_GRAD_L2, DEC_F32_GRAD_CORR, DEC_F32_OPEN_L2, DEC_NOISE = 5e-3, 0.9999, 2e-4, 1e-3
 DEC_NOISE_KEYS = ("b1", "b2", "b3", "b4")
 DEC_BF16_FWD, DEC_BF16_FWD_CORR, DEC_BF16_STAT = 2e-3, 0.9999, 1e-3
@@ -620,6 +634,36 @@ def decoder_float64_distances(card, a4, w, x, dout, runs: dict, label: str) -> b
     return within["kernel"]
 
 
+def decoder_bf16_moments_bar(card: str, a4, w) -> bool:
+    """bfloat16 A4f on the 16 input sets of a4.BF16_MOMENTS_BAR's shapes and
+    x seeds (3 groups of 2, x from seed 5, and 3 groups of 32, x from each
+    seed of a4.BF16_BAR_SEEDS, x ~ N(0, 0.5)) on this run's weights: prints,
+    per set, the kernel's and the plain version's moments distance from the
+    float64 pass and the kernel-vs-plain distance over the former 1e-5 bar.
+    Returns whether every set meets the bar."""
+    sets = [("nb 2, seed 5", 2, 5), *((f"nb 32, seed {s}", B, s) for s in a4.BF16_BAR_SEEDS)]
+    ok, worst = True, (0.0, 0.0, 0.0)
+    for name, nb, seed in sets:
+        x = torch.tensor(np.random.default_rng(seed).normal(0, 0.5, (3, 256, nb * 128)), dtype=torch.float32,
+                         device=w["w1"].device).to(torch.bfloat16)
+        with torch.no_grad():
+            ref = a4.train_decode_groups(w, x, plain=True)
+            got = a4.train_decode_groups(w, x)
+            truth = a4.train_decode_groups_plain(w, x, float64=True)
+        torch.cuda.synchronize()
+        c_kernel, c_plain = (a4.moments_distance(r[1:], truth[1:]) for r in (got, ref))
+        gap = a4.moments_distance(got[1:], ref[1:])
+        good = c_kernel <= a4.BF16_MOMENTS_BAR and c_plain <= a4.BF16_MOMENTS_BAR and gap <= DEC_BF16_STAT
+        ok = ok and good
+        worst = tuple(max(a, b) for a, b in zip(worst, (c_kernel, c_plain, gap)))
+        log("kernels", f"{'ok' if good else 'FAIL'} decoder_train bf16 moments bar {a4.BF16_MOMENTS_BAR:.1e}, "
+                       f"set {name}: c(kernel) {c_kernel:.4e}, c(plain) {c_plain:.4e}, kernel vs plain "
+                       f"{gap:.4e} = {gap / 1e-5:.3f} x the former 1e-5 bar on {card}")
+    log("kernels", f"decoder_train bf16 moments over {len(sets)} sets: worst c(kernel) {worst[0]:.4e}, c(plain) "
+                   f"{worst[1]:.4e}, kernel vs plain {worst[2]:.4e}; all within the bar: {ok}")
+    return ok
+
+
 def decoder_fma_forward(card: str, a4, w, x) -> None:
     """Print float32 A4f's device ms by kernel (torch.profiler) and its conv
     stages' TFLOP/s on the FMA engine, and the forward conv kernel's
@@ -783,8 +827,9 @@ def train_decoder_kernels(card: str, dev) -> dict:
             _, corr = compare(fwd["out"], ref_fwd["out"])
             ok = ok and fwd_err <= DEC_BF16_FWD and corr > DEC_BF16_FWD_CORR and stat_err <= DEC_BF16_STAT
             g_ok, bwd_err, worst = grads_ok(grads, ref_grads, ENC_BF16_GRAD_L2, ENC_BF16_GRAD_CORR)
-            ok = ok and g_ok
-            extra = ""
+            bar_ok = decoder_bf16_moments_bar(card, a4, w)
+            ok = ok and g_ok and bar_ok
+            extra = f"; moments within the float64 bar on 16 sets: {bar_ok}"
         line = (f"decoder_train {name} G={G} nb={nb}: out max|kernel - plain| {fwd_err:.3e}, moments {stat_err:.3e}; "
                 f"worst grad {worst[2]}: L2 {worst[0]:.2e} corr {worst[1]:.6f}; max|dgrad| {bwd_err:.3e}{extra}; "
                 f"bitwise across a repeat launch: {bitwise}")
@@ -1328,6 +1373,189 @@ def parallel_annotate_phase(card: str, tmp: str) -> dict:
     return launches
 
 
+def launches_by_row(a1, a2, a4) -> dict:
+    """Every kernel row's launch count from the wrappers' counters."""
+    rows = {}
+    for dt, key in (("float32", "f32"), ("bfloat16", "bf16")):
+        rows.update({f"decoder_basis_{key}": a1.LAUNCHES[dt], f"decoder_gates_{key}": a1.LAUNCHES[f"gates_{dt}"],
+                     f"decoder_y1_{key}": a1.LAUNCHES[f"y1_{dt}"], f"encoder_fwd_{key}": a2.LAUNCHES[f"fwd_{dt}"],
+                     f"encoder_bwd_{key}": a2.LAUNCHES[f"bwd_{dt}"],
+                     f"decoder_train_fwd_{key}": a4.LAUNCHES[f"fwd_{dt}"],
+                     f"decoder_train_bwd_{key}": a4.LAUNCHES[f"bwd_{dt}"]})
+    return rows
+
+
+def lead_parallel_phase(card: str, tmp: str) -> dict:
+    """Lead tensor parallelism and the 3-axis train step on a (1, 1, 1)
+    (data, lead, view) mesh, an NCCL group of one, at full width
+    (configs/nef_net_synthetic.yml: 3 leads, batch 32):
+      * TRAIN_STEPS steps of `build_3d_train_step(deterministic=True)` in
+        float32 and bfloat16 against the same steps of the single-process
+        eager Solver step (no mesh, dropout off) on the same batches, both on
+        cuDNN's deterministic algorithms: float32 losses atol 2e-6, params,
+        BN state and SGD momentum atol 5e-6 (the JAX package's
+        tests/test_sharding.py bars); bfloat16 losses within rtol 0.05 / atol
+        5e-3 of the float32 3-axis run's, float32 masters; whether each is
+        bitwise; on cuDNN's default algorithms the same distances, and the
+        single-process step's from its own repeat, printed with no bar; both
+        steps' ms (CUDA events, in turns);
+      * the lead-parallel panorama over 32 beats x 84 views against encode +
+        decode_views: atol 2e-5;
+      * no kernel launches: the lead path is eager, as in the JAX package.
+    Returns the phase's launches by kernel row name."""
+    from electrocardio_panorama_tpu_torch.config import load_cfg
+    from electrocardio_panorama_tpu_torch.data import BeatLoader, build_dataset
+    from electrocardio_panorama_tpu_torch.models import init_nefnet
+    from electrocardio_panorama_tpu_torch.ops import full_f32
+    from electrocardio_panorama_tpu_torch.ops.kernels import decoder_fused as a1
+    from electrocardio_panorama_tpu_torch.ops.kernels import decoder_train as a4
+    from electrocardio_panorama_tpu_torch.ops.kernels import encoder_fused as a2
+    from electrocardio_panorama_tpu_torch.parallel import (build_3d_train_step, build_lead_parallel_panorama,
+                                                           gather_lead_params, make_mesh, shard_lead_params)
+    from electrocardio_panorama_tpu_torch.synthesis import theta_grid
+    from electrocardio_panorama_tpu_torch.training.optim import get_optimizer
+    from electrocardio_panorama_tpu_torch.training.solver import Solver
+
+    def cfg_for(dtype):
+        return load_cfg("configs/nef_net_synthetic.yml", [
+            "output_dir", f"{tmp}/lead_{dtype}", "DATA.synthetic_root", f"{tmp}/train_synth",
+            "DATA.synthetic_n_train", str(B * TRAIN_STEPS), "DATA.synthetic_n_test", str(TRAIN_N_TEST),
+            "DATA.batch_size", str(B), "TPU.compute_dtype", dtype, "TPU.train_encoder", "xla",
+            "TPU.train_decoder", "xla", "desc", "debug"])
+
+    def momentum(opt, params):
+        return {k: opt.state[v].get("momentum_buffer", torch.zeros_like(v)) for k, v in params.items()}
+
+    def max_diff(a: dict, b: dict) -> float:
+        return max(float((a[k].double() - b[k].double()).abs().max()) for k in a)
+
+    for counter in (a1.LAUNCHES, a2.LAUNCHES, a4.LAUNCHES):
+        counter.clear()
+    dev = torch.device("cuda")
+    mesh = make_mesh((1, 1, 1), ("data", "lead", "view"), device="cuda")
+    cfg = cfg_for("float32")
+    batches = [b for _, b in zip(range(TRAIN_STEPS), BeatLoader(
+        build_dataset(cfg, "train"), B, shuffle=True, drop_last=True, seed=cfg.seed))]
+    p_init, s_init = init_nefnet(torch.Generator().manual_seed(cfg.seed), lead_num=LEADS, device=dev)
+    def train(cfg, solver, which: str):
+        """TRAIN_STEPS steps from p_init on `batches`, the single-process
+        Solver step or the 3-axis step: ((losses [steps, 4], params, momentum,
+        BN state) as full tensors, a closure that takes the steps again)."""
+        if which == "single":
+            p = {k: v.clone().requires_grad_(True) for k, v in p_init.items()}
+            opt = get_optimizer(cfg, p)
+
+            def one(bn, **kw):
+                return solver.train_step(p, bn, opt, **kw)
+        else:
+            p = {k: v.requires_grad_(True) for k, v in shard_lead_params(p_init, mesh, lead_num=LEADS).items()}
+            opt = get_optimizer(cfg, p)
+            one = functools.partial(build_3d_train_step(solver.model, cfg, opt, mesh, deterministic=True), p)
+
+        def steps(losses=None):
+            bn = s_init
+            for i, b in enumerate(batches):
+                bn, lvec = one(bn, epoch=0, step=i, i1=i % LEADS, i2=(i + 1) % LEADS, batch=b)
+                if losses is not None:
+                    losses.append(lvec)
+            return bn
+
+        losses = []
+        bn = steps(losses)
+        torch.cuda.synchronize()
+        return (torch.stack(losses).cpu(), gather_lead_params(p, mesh), gather_lead_params(momentum(opt, p), mesh),
+                bn), steps
+
+    def distance(a, b) -> tuple[dict, bool]:
+        """Max |a - b| of losses, params, momentum and BN state; bitwise."""
+        d = {"losses": float((a[0] - b[0]).abs().max())}
+        d.update({name: max_diff(x, y) for name, x, y in zip(("params", "momentum", "bn"), a[1:], b[1:])})
+        bitwise = torch.equal(a[0], b[0]) and all(torch.equal(x[k], y[k]) for x, y in zip(a[1:], b[1:]) for k in x)
+        return d, bitwise
+
+    def fmt(d: dict) -> str:
+        return ", ".join(f"{k} {v:.3e}" for k, v in d.items())
+
+    cudnn_deterministic = torch.backends.cudnn.deterministic
+    losses3d, ok_all = {}, True
+    for dtype in ("float32", "bfloat16"):
+        cfg = cfg_for(dtype)
+        solver = Solver(cfg, use_writer=False, device="cuda")
+        solver.draw_masks = lambda gen, b: None  # dropout off, as deterministic=True
+        # cuDNN's default algorithms: the float32 eager backward does not
+        # repeat bitwise (ROADMAP Queue C item 1), which sets a floor under
+        # any comparison of two eager runs; printed, no bar
+        torch.backends.cudnn.deterministic = False
+        single, run_single = train(cfg, solver, "single")
+        again, _ = train(cfg, solver, "single")
+        lead, run_lead = train(cfg, solver, "3d")
+        floor, floor_bitwise = distance(single, again)
+        free, free_bitwise = distance(single, lead)
+        log("lead_parallel", f"{dtype}, cuDNN's default algorithms (no bar): the single-process step against its "
+                             f"own repeat: max |diff| {fmt(floor)}, bitwise {floor_bitwise}; the 3-axis step against "
+                             f"it: {fmt(free)}, bitwise {free_bitwise}")
+        step_ms = {}
+        for which, fn in (("single", run_single), ("3d", run_lead), ("3d", run_lead), ("single", run_single)):
+            step_ms.setdefault(which, []).append(cuda_ms(fn, reps=2) / len(batches))
+        # the bars, on cuDNN's deterministic algorithms
+        torch.backends.cudnn.deterministic = True
+        single, _ = train(cfg, solver, "single")
+        lead, _ = train(cfg, solver, "3d")
+        d, bitwise = distance(single, lead)
+        losses3d[dtype] = lead[0]
+        full, mom = lead[1], lead[2]
+        masters = all(v.dtype == torch.float32 for v in (*full.values(), *mom.values()))
+        ok = masters and bool(torch.isfinite(lead[0]).all()) and all(
+            full[k].shape == p_init[k].shape for k in p_init)
+        if dtype == "float32":
+            ok = ok and d["losses"] <= 2e-6 and max(d["params"], d["momentum"], d["bn"]) <= 5e-6
+            track = ""
+        else:
+            track_ok = torch.allclose(lead[0], losses3d["float32"], rtol=0.05, atol=5e-3)
+            ok = ok and track_ok
+            track = (f"; losses against the float32 3-axis run: max abs "
+                     f"{float((lead[0] - losses3d['float32']).abs().max()):.3e} (rtol 0.05, atol 5e-3: {track_ok})")
+        line = (f"{dtype}, {TRAIN_STEPS} steps at B={B}, {LEADS} leads, (1, 1, 1) mesh, cuDNN deterministic: "
+                f"3-axis step vs the single-process eager step, losses {np.round(lead[0][:, 0].numpy(), 6).tolist()}; "
+                f"max |diff| {fmt(d)} (bars: losses 2e-6, the rest 5e-6 in float32); bitwise: {bitwise}; float32 "
+                f"masters: {masters}{track}; step (cuDNN's default algorithms) "
+                f"{' / '.join(f'{t:.3f}' for t in step_ms['3d'])} ms 3-axis, "
+                f"{' / '.join(f'{t:.3f}' for t in step_ms['single'])} ms single-process (CUDA events) on {card}")
+        log("lead_parallel", ("ok " if ok else "FAIL ") + line)
+        ok_all = ok_all and ok
+    torch.backends.cudnn.deterministic = cudnn_deterministic
+
+    # the lead-parallel panorama against encode + decode_views
+    cfg = cfg_for("float32")
+    model = Solver(cfg, use_writer=False, device="cuda").model
+    batch = next(iter(BeatLoader(build_dataset(cfg, "test"), B, shuffle=False, drop_last=True, seed=cfg.seed)))
+    data, it, rois = (torch.as_tensor(batch[k], device=dev) for k in ("data", "input_theta", "rois"))
+    views = torch.as_tensor(theta_grid(7, 12), device=dev)
+    with torch.no_grad(), full_f32():
+        latent = model.encode(p_init, data, it, rois).latent_all
+        ref = model.decode_views(p_init, s_init, latent, views[None].expand(B, -1, -1))
+    render = build_lead_parallel_panorama(model, mesh, view_axis="view")
+    t0 = time.perf_counter()
+    out = render(p_init, s_init, data, it, rois, views)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    err = float((out - ref).abs().max())
+    ok = tuple(out.shape) == (B, len(views), 512) and err <= 2e-5 and bool(torch.isfinite(out).all())
+    log("lead_parallel", f"{'ok' if ok else 'FAIL'} lead-parallel panorama on the (1, 1, 1) mesh: {list(out.shape)} "
+                         f"in {secs:.3f} s, max |render - (encode + decode_views)| {err:.3e} (bar 2e-5), bitwise "
+                         f"{torch.equal(out, ref)} on {card}")
+    ok_all = ok_all and ok
+    torch.cuda.synchronize()
+    launches = launches_by_row(a1, a2, a4)
+    if sum(launches.values()):
+        log("lead_parallel", f"FAIL the lead path launched kernels: {launches}")
+        ok_all = False
+    torch.distributed.destroy_process_group()  # the group of one that the mesh started
+    if not ok_all:
+        raise SystemExit(1)
+    return launches
+
+
 def compare(out, ref):
     err = float((out - ref).abs().max())
     corr = float(np.corrcoef(out.double().cpu().numpy().ravel(), ref.double().cpu().numpy().ravel())[0, 1])
@@ -1501,10 +1729,13 @@ def main() -> int:
 
         # ------------------------------------------------- 7. parallel_annotate
         parallel_launches = parallel_annotate_phase(card, tmp)
+
+        # ----------------------------------------------------- 8. lead_parallel
+        lead_launches = lead_parallel_phase(card, tmp)
     nefnet2_launches = {"decoder_basis_f32": n2["A1"], "decoder_train_fwd_f32": n2["A4f"],
                         "decoder_train_bwd_f32": n2["A4b"]}
 
-    # --------------------------------------------------------------- 8. summary
+    # --------------------------------------------------------------- 9. summary
     kernels = [{
         "name": f"decoder_basis_{key}", "route": "cuda", "source": A1_SOURCE, "replaces": A1_REPLACES,
         "launches": st["launches"], "max_abs_err": st["max_abs_err"], "ms": st["ms"],
@@ -1521,9 +1752,10 @@ def main() -> int:
             "max_abs_err": st["max_abs_err"], "ms": st["ms"], "plain_ms": st["plain_ms"],
             "bound_ms": st["bound_ms"], "bound_by": st["bound_by"], "library_ms": None,
         })
-    for k in kernels:  # launches on the Nef-Net2 train run and under the mesh
+    for k in kernels:  # launches on the Nef-Net2 train run, under the mesh and on the lead path
         k["launches_nefnet2"] = nefnet2_launches.get(k["name"], 0)
         k["launches_parallel"] = parallel_launches.get(k["name"], 0)
+        k["launches_lead"] = lead_launches[k["name"]]
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

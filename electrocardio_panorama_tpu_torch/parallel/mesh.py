@@ -3,7 +3,10 @@
 Named axes, as in the JAX package:
 
     data : the batch; gradients and loss components are averaged over it
+    lead : encoder tensor parallelism; each rank holds and encodes a block of
+           the leads (parallel/sharding.py, `build_3d_train_step`)
     view : the panorama's viewpoint sweep; each rank decodes a slice of it
+           (in the 3-axis train step, a second batch axis)
 
 The JAX package spreads one process over all its local devices. Here one
 process drives one device, so a mesh covers exactly the world's ranks: its

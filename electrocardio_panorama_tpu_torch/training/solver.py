@@ -102,12 +102,15 @@ def local_rows(masks, rows: slice, batch: int):
 
 
 def check_ported_knobs(cfg) -> None:
-    """Knobs whose paths this port has not reached raise, naming their ROADMAP
-    item; they never run something else silently."""
+    """Knobs that the port does not take raise, naming why (ROADMAP.md);
+    they never run something else silently."""
     backend = cfg.TPU.checkpoint_backend
     if backend == "orbax":
-        raise NotImplementedError("TPU.checkpoint_backend='orbax' is not ported yet: ROADMAP.md "
-                                  "open items (orbax); use 'pickle'")
+        raise NotImplementedError(
+            "TPU.checkpoint_backend='orbax' is not ported, on purpose (ROADMAP.md, divergences kept on purpose): "
+            "orbax.checkpoint imports jax, which the port never loads; reading its layout without jax takes "
+            "tensorstore, which the port's CUDA environment does not have; use 'pickle', the checkpoint format "
+            "that both packages read and write")
     if backend != "pickle":
         raise ValueError(f"unknown TPU.checkpoint_backend {backend!r} (use 'pickle' or 'orbax')")
     if cfg.TPU.train_decoder not in ("xla", "fused"):

@@ -27,7 +27,12 @@ Tolerances:
   * the CUDA kernels against the plain version (card only): float32 out
     2e-5, moments 1e-5, gradients L2 relative 5e-3 and corr > 0.9999 with
     the model's BN offsets and L2 2e-4 with every relu open, the conv
-    biases before a BN at their noise level (PERF.md section 2).
+    biases before a BN at their noise level (PERF.md section 2);
+  * bfloat16 moments: the plain version and (card only) the kernel each
+    within `BF16_MOMENTS_BAR` (allclose form, `moments_distance`) of the
+    float64 pass on 16 input sets, and the kernel within 1e-3 of the plain
+    version; the bar is derived from the plain version alone (its comment in
+    ops/kernels/decoder_train.py).
 """
 
 import numpy as np
@@ -191,7 +196,54 @@ def test_plain_float64_pass_matches_f32_and_jax_kernel_pair(setup, jax_pair_grad
         for ref in (gp32[k].numpy(), np.asarray(gp_ref[k])):
             np.testing.assert_allclose(g.numpy(), ref, rtol=2e-4, atol=2e-5, err_msg=k)
     with pytest.raises(ValueError, match="float64"):
-        dt.train_decode_groups_plain(dt.pack_train_weights(tp, dtype=torch.bfloat16), x32.bfloat16(), float64=True)
+        dt.train_decode_groups_plain({k: v.double() for k, v in w32.items()}, x32.double(), float64=True)
+
+
+def test_plain_float64_pass_takes_bf16_storage(setup):
+    """From bfloat16 storage the float64 pass upcasts w and x exactly and
+    rounds nothing after: it equals the float64 pass of the same values
+    stored in float32, bit for bit. Mixed storage types raise."""
+    _, _, stacked, tp, _ = setup
+    w16 = dt.pack_train_weights(tp, dtype=torch.bfloat16)
+    x16 = torch.tensor(stacked).reshape(3, NB, 256, 128).permute(0, 2, 1, 3).reshape(3, 256, NB * 128).bfloat16()
+    with torch.no_grad():
+        got = dt.train_decode_groups_plain(w16, x16, float64=True)
+        want = dt.train_decode_groups_plain({k: v.float() for k, v in w16.items()}, x16.float(), float64=True)
+    assert all(t.dtype == torch.float64 for t in got)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    with pytest.raises(ValueError, match="float64"):
+        dt.train_decode_groups_plain(w16, x16.float(), float64=True)
+
+
+def bar_sets(setup):
+    """The 16 input sets of dt.BF16_MOMENTS_BAR: (name, x float32 [3, 256,
+    nb*128]) for the test's own set at nb 2 and, at 3 groups of 32, x as
+    _cuda_inputs draws it from each seed of dt.BF16_BAR_SEEDS."""
+    stacked = setup[2]
+    yield "setup nb 2", torch.tensor(stacked).reshape(3, NB, 256, 128).permute(0, 2, 1, 3).reshape(3, 256, NB * 128)
+    for seed in dt.BF16_BAR_SEEDS:
+        x = np.random.default_rng(seed).normal(0, 0.5, (3, 256, 32 * 128)).astype(np.float32)
+        yield f"seed {seed} nb 32", torch.tensor(x)
+
+
+def test_plain_bf16_moments_within_the_float64_bar(setup):
+    """On each of the 16 sets the plain version's bfloat16 moments lie within
+    BF16_MOMENTS_BAR of the float64 pass, and the bar is at most 2.5 times
+    the largest distance, so it cannot drift loose unnoticed."""
+    w16 = dt.pack_train_weights(setup[3], dtype=torch.bfloat16)
+    cs = {}
+    with torch.no_grad():
+        for name, x in bar_sets(setup):
+            x16 = x.bfloat16()
+            _, mean, var = dt.train_decode_groups_plain(w16, x16)
+            _, mean64, var64 = dt.train_decode_groups_plain(w16, x16, float64=True)
+            cs[name] = dt.moments_distance((mean, var), (mean64, var64))
+    assert len(cs) == 16
+    assert max(cs.values()) <= dt.BF16_MOMENTS_BAR, cs
+    assert dt.BF16_MOMENTS_BAR <= 2.5 * max(cs.values()), cs
+    # the distance is the allclose form: a moment moved by the bar's excess fails
+    _, mean, var = dt.train_decode_groups_plain(w16, next(bar_sets(setup))[1].bfloat16())
+    assert dt.moments_distance((mean + 2 * dt.BF16_MOMENTS_BAR, var), (mean, var)) > dt.BF16_MOMENTS_BAR
 
 
 def test_bf16_storage_matches_jax_bf16_and_correlates(setup):
@@ -285,8 +337,11 @@ def test_cuda_kernels_match_plain(setup, dtype):
     assert dt.LAUNCHES[f"bwd_{dtype}"] == before.get(f"bwd_{dtype}", 0) + 1
     f32 = dtype == "float32"
     torch.testing.assert_close(got[0], ref[0], rtol=0, atol=2e-5 if f32 else 2e-3)
-    for a, b in ((got[1], ref[1]), (got[2], ref[2])):
-        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+    if f32:
+        for a, b in ((got[1], ref[1]), (got[2], ref[2])):
+            torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+    else:
+        assert_bf16_moments_bar(w, x0, got[1:3], ref[1:3])
     for k, b in ref[3].items():
         a, b = got[3][k].float(), b.float()
         if k in ("b1", "b2", "b3", "b4"):
@@ -344,6 +399,41 @@ def test_compare_builds_a4_dump_keys():
     # the inputs come from a seed: a second dump is the same
     d2 = CB.a4_dump(dt, "float32", torch.device("cpu"), nb=2)
     assert all(torch.equal(d[k], d2[k]) for k in d)
+
+
+def assert_bf16_moments_bar(w, x, got, ref) -> tuple[float, float, float]:
+    """bfloat16 moments: the kernel's (got) and the plain version's (ref)
+    each within BF16_MOMENTS_BAR of the float64 pass, and the kernel within
+    1e-3 of the plain version (chip_smoke.py DEC_BF16_STAT). Returns
+    (c kernel, c plain, c kernel vs plain)."""
+    with torch.no_grad():
+        _, mean64, var64 = dt.train_decode_groups_plain(w, x, float64=True)
+    c_kernel = dt.moments_distance(got, (mean64, var64))
+    c_plain = dt.moments_distance(ref, (mean64, var64))
+    gap = dt.moments_distance(got, ref)
+    assert c_kernel <= dt.BF16_MOMENTS_BAR and c_plain <= dt.BF16_MOMENTS_BAR and gap <= 1e-3, (c_kernel, c_plain, gap)
+    return c_kernel, c_plain, gap
+
+
+@pytest.mark.cuda
+def test_cuda_bf16_moments_within_the_float64_bar(setup):
+    """bfloat16 A4f on the 16 sets of BF16_MOMENTS_BAR: its moments and the
+    plain version's each within the bar of the float64 pass, and within 1e-3
+    of each other. Prints, per set, both distances and the kernel-vs-plain
+    gap over the former 1e-5 bar (run with -s)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    dev = torch.device("cuda")
+    w = {k: v.to(dev) for k, v in dt.pack_train_weights(setup[3], dtype=torch.bfloat16).items()}
+    for name, x in bar_sets(setup):
+        x = x.to(dev, torch.bfloat16)
+        with torch.no_grad():
+            ref = dt.train_decode_groups(w, x, plain=True)
+            got = dt.train_decode_groups(w, x)
+        torch.cuda.synchronize()
+        c_kernel, c_plain, gap = assert_bf16_moments_bar(w, x, got[1:], ref[1:])
+        print(f"bf16 moments bar {dt.BF16_MOMENTS_BAR:.1e}, {name}: c(kernel) {c_kernel:.4e}, c(plain) "
+              f"{c_plain:.4e}, kernel vs plain / 1e-5 {gap / 1e-5:.3f} on {torch.cuda.get_device_name(0)}")
 
 
 def _cuda_inputs(tp, dtype, nb, seed=11):

@@ -21,10 +21,6 @@ output when it passes it.
 """
 
 import os
-import socket
-import subprocess
-import sys
-import time
 
 import numpy as np
 import pytest
@@ -50,51 +46,10 @@ from electrocardio_panorama_tpu_torch.training import solver as S
 from electrocardio_panorama_tpu_torch.training.checkpoint import CheckPointer
 
 from _torch_dist_child import BATCH, SHUFFLE, make_cfg
+from _torch_ranks import REPO, no_group, run_ranks  # noqa: F401 (no_group is a fixture)
 
-REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CHILD = os.path.join(REPO, "tests", "_torch_dist_child.py")
-RANKS_TIMEOUT_S = 150
 N_VIEWS = 8
-
-
-def free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
-def run_ranks(*args: str) -> list[str]:
-    """Two ranks of _torch_dist_child.py as torchrun would start them; fails
-    with both ranks' output if either exits non-zero or the deadline passes."""
-    env = {**os.environ, "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(free_port()), "WORLD_SIZE": "2",
-           "OMP_NUM_THREADS": "2", "PYTHONPATH": REPO + os.pathsep + os.environ.get("PYTHONPATH", "")}
-    procs = [subprocess.Popen([sys.executable, CHILD, *args], cwd=REPO, text=True,
-                              env={**env, "RANK": str(r), "LOCAL_RANK": str(r)},
-                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT) for r in range(2)]
-    deadline = time.monotonic() + RANKS_TIMEOUT_S
-    outs = {}
-    try:
-        for r, p in enumerate(procs):
-            outs[r] = p.communicate(timeout=max(deadline - time.monotonic(), 1.0))[0]
-    except subprocess.TimeoutExpired:
-        for p in procs:
-            p.kill()
-        for r, p in enumerate(procs):
-            outs.setdefault(r, p.communicate()[0])
-        pytest.fail(f"the ranks did not finish within {RANKS_TIMEOUT_S} s:\n"
-                    + "\n".join(f"--- rank {r}\n{outs[r][-3000:]}" for r in outs))
-    for r, p in enumerate(procs):
-        assert p.returncode == 0 and "CHILD_OK" in outs[r], f"rank {r} failed:\n{outs[r][-4000:]}"
-    return [outs[r] for r in range(2)]
-
-
-@pytest.fixture
-def no_group():
-    """Each test starts and ends without a process group in this process."""
-    assert not dist.is_initialized()
-    yield
-    if dist.is_initialized():
-        dist.destroy_process_group()
 
 
 def test_local_batch_slice_partitions_as_jax(monkeypatch):
@@ -163,7 +118,7 @@ def test_two_rank_training_matches_single_process(tmp_path, no_group):
     build_dataset(make_cfg(str(tmp_path / "seed"), synth), "test")
     one = make_cfg(str(tmp_path / "one"), synth, mesh_shape=())
     train_main.main(one, device="cpu")
-    run_ranks("train", str(tmp_path / "two"), synth)
+    run_ranks(CHILD, 2, "train", str(tmp_path / "two"), synth)
 
     params_one, _, _, extras_one = CheckPointer(os.path.join(one.output_dir, "mh")).load()
     params_two, _, _, extras_two = CheckPointer(str(tmp_path / "two" / "mh")).load()
@@ -223,7 +178,7 @@ def test_dp_step_matches_jax_and_view_sharded_panorama(tmp_path, no_group):
     np.savez(tmp_path / "inputs.npz", **{f"p:{k}": v for k, v in params.items()},
              **{f"s:{k}": v for k, v in state.items()}, **{f"b:{k}": v for k, v in batch.items()},
              **{"b:views": views})
-    run_ranks("step_render", str(tmp_path))
+    run_ranks(CHILD, 2, "step_render", str(tmp_path))
     port = np.load(tmp_path / "port.npz")
 
     # the dp step against JAX's, at the f32 train bars (PERF.md §2)

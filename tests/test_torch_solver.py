@@ -195,6 +195,20 @@ def test_unported_and_unknown_knobs_raise(base_cfg, tmp_path, key, value, err):
         S.Solver(c, use_writer=False, device="cpu")
 
 
+def test_orbax_backend_raise_names_its_reason(base_cfg, tmp_path):
+    """The orbax backend stays out of the port: the raise says that orbax
+    imports jax, that tensorstore is not there, and that pickle crosses both
+    packages."""
+    c = base_cfg.clone()
+    c.output_dir = str(tmp_path)
+    c.TPU.checkpoint_backend = "orbax"
+    with pytest.raises(NotImplementedError) as e:
+        S.Solver(c, use_writer=False, device="cpu")
+    msg = str(e.value)
+    assert "orbax.checkpoint imports jax" in msg and "tensorstore" in msg, msg
+    assert "'pickle', the checkpoint format that both packages read and write" in msg, msg
+
+
 def test_knob_resolution(base_cfg, tmp_path):
     c = base_cfg.clone()
     c.output_dir = str(tmp_path)
