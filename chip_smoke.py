@@ -17,7 +17,8 @@ result line:
                across a repeat launch, bfloat16 A4f's moments within the
                float64-anchored bar on 16 input sets, float32 A4f's and
                A4b's device ms by kernel, their FMA engine's TFLOP/s and
-               resources, and both
+               resources, bfloat16 A4f's device ms by kernel, its
+               tensor-core forward convs' TFLOP/s and resources, and both
                float32 sides' out, moments and gradient distance from a
                float64 pass; float32 and bfloat16, timed with CUDA events;
   4. render  — the port's render entry point (`render.main`) on a generated
@@ -703,6 +704,56 @@ def decoder_fma_forward(card: str, a4, w, x) -> None:
     log("kernels", line)
 
 
+def decoder_tc_forward(card: str, a4, w, x) -> None:
+    """Print bfloat16 A4f's device ms by kernel (torch.profiler) and its conv
+    stages' TFLOP/s on the tensor-core engine, and the forward conv kernel's
+    registers, spills, shared memory, blocks per SM and grids against the
+    card's SMs, for the plain convs (conv2, conv4) and the upsampled ones at
+    input resolution (conv1, conv3). Fails if a conv3_kernel ran, the
+    tensor-core forward kernel did not, it spills, or it fits no SM."""
+    from electrocardio_panorama_tpu_torch.ops.kernels import build
+    from electrocardio_panorama_tpu_torch.utils.profiling import device_window
+
+    N = 3 * B
+    split = device_window(lambda: [a4.forward_cuda(w, x) for _ in range(5)], 5, top=16)
+    by = split["by_kernel"]
+    conv_ms = sum(v for k, v in by.items() if "conv_fwd_kernel_tc" in k)
+    # the products the kernels run (conv1 and conv3 at input resolution), and
+    # the same four convs counted at output resolution
+    run_flops = 2 * 3 * (128 * 256 * 128 + 128 * 128 * 256 + 64 * 128 * 256 + 64 * 64 * 512) * N
+    out_flops = 2 * (CONV1_MACS + TAIL_MACS - 64 * 3 * 512) * N
+    rate = (lambda f: f / (1e9 * conv_ms)) if conv_ms else (lambda f: 0.0)
+    log("kernels", "A4f bf16 device ms per launch by kernel (torch.profiler): "
+                   + "; ".join(f"{k} {v:.3f}" for k, v in by.items())
+                   + f"; all kernels {split['kernel_sum_ms']:.3f}, busy {split['busy_ms']:.3f}; the four convs "
+                   + f"{conv_ms:.3f} ms = {rate(run_flops):.1f} TFLOP/s of the products run "
+                   + f"({rate(out_flops):.1f} counted at output resolution) on {card}")
+    lib = build.load("decoder_train_fwd")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    ws = lib.decoder_train_fwd_workspace_floats_bf16
+    ws.restype, ws.argtypes = ctypes.c_longlong, [ctypes.c_int, ctypes.c_int]
+    ok = conv_ms > 0 and not any("conv3_kernel" in k for k in by)
+    parts = []
+    # (up, convs with their grids: N * input steps / 64 x output channels / 64)
+    for up, grids in ((0, {"conv2": N * 256 // 64 * 2, "conv4": N * 512 // 64}),
+                      (1, {"conv1": N * 128 // 64 * 2, "conv3": N * 256 // 64})):
+        res = (ctypes.c_int * 5)()
+        rc = lib.decoder_train_fwd_tc_resources(up, res)
+        regs, local, smem, dyn, per_sm = res
+        ok = ok and rc == 0 and local == 0 and per_sm >= 1
+        parts.append(f"conv_fwd_kernel_tc<{up}>: {regs} registers, {local} bytes local memory (spills), {smem} "
+                     f"bytes static and {dyn} dynamic shared memory, {per_sm} blocks per SM of {sms} SMs (rc {rc}); "
+                     + ", ".join(f"{k} {v} blocks ({v / (sms * max(per_sm, 1)):.2f} waves)"
+                                 for k, v in grids.items()))
+    line = ("tensor-core engine forward (decoder_train_tc.cuh): " + "; ".join(parts)
+            + f"; A4f bf16 workspace {ws(3, B) * 4 / 1e6:.3f} MB")
+    if not ok:
+        log("kernels", f"FAIL {line}; a conv3_kernel ran, the tensor-core forward kernel did not, it spills, "
+                       "or it fits no SM")
+        raise SystemExit(1)
+    log("kernels", line)
+
+
 def decoder_fma_engine(card: str, a4, w, x, dout, planes) -> None:
     """Print float32 A4b's device ms by kernel (torch.profiler), the FMA
     engine's TFLOP/s for the data gradients and the weight gradients apart,
@@ -854,10 +905,13 @@ def train_decoder_kernels(card: str, dev) -> dict:
         # operations: the forward's convs; the backward reads the planes the
         # forward kept (no recompute) and takes every data and every weight
         # gradient, twice the forward's operations, against x, dout, the
-        # weights and the kept planes read and the float32 gradients written
+        # weights and the kept planes read and the float32 gradients written.
+        # Bytes: the forward reads x and the weights and writes every plane it
+        # keeps for the backward (a1..a4 and h4 float32, h1..h3 in the storage
+        # type), out and the moments
         fwd_flops = 2 * (CONV1_MACS + TAIL_MACS) * G * nb
         wbytes = nbytes(*w.values())
-        fb, fby = bound_ms(fwd_flops, nbytes(x, fwd["out"], fwd["mean"], fwd["var"]) + wbytes, dt)
+        fb, fby = bound_ms(fwd_flops, nbytes(x, *planes.values()) + wbytes, dt)
         grad_bytes = nbytes(x.float()) + sum(v.numel() * 4 for v in w.values())  # float32 gradients
         bb, bby = bound_ms(2 * fwd_flops, nbytes(x, dout, *planes.values()) + wbytes + grad_bytes, dt)
         stats[f"decoder_train_fwd_{name}"] = dict(max_abs_err=fwd_err, ms=fwd_ms, plain_ms=plain_fwd_ms,
@@ -870,6 +924,8 @@ def train_decoder_kernels(card: str, dev) -> dict:
         if dt == torch.float32:
             decoder_fma_forward(card, a4, w, x)
             decoder_fma_engine(card, a4, w, x, dout, planes)
+        else:
+            decoder_tc_forward(card, a4, w, x)
     return stats
 
 

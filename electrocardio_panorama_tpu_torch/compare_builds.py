@@ -50,10 +50,18 @@ FAMILIES = {"A2/A3": ("plane ", "grad "), "A4": ("A4 ",), "A4b on shared planes"
 # dx and the 18 parameter gradients of an A4 run (decoder_train.WNAMES order)
 A4_GRADS = ["dx", "w1", "b1", "g1", "o1", "w2", "b2", "g2", "o2", "w3", "b3", "g3", "o3", "w4", "b4", "g4", "o4",
             "w5", "b5"]
+# A4f's conv kernels in any checkout: the SIMT one of earlier checkouts, the
+# float32 FMA engine's, the bfloat16 tensor-core engine's
+A4F_CONV_KERNELS = ("conv3_kernel", "conv_fwd_kernel_fma", "conv_fwd_kernel_tc")
 # (dtype, family) -> the tensors that this checkout's kernels change against
 # the parent's; every other tensor must stay bitwise equal. This checkout
-# moves no kernel bit: every family of both dtypes is the parent's.
-EXPECTED_TO_DIFFER: dict[tuple[str, str], list[str]] = {}
+# moves bfloat16 A4f's conv stages to the tensor-core engine (another order
+# of the float32 sums): its out and moments move, and so does every gradient
+# of the A4 run, whose A4b reads the planes that A4f filled. A4b on shared
+# planes, A2/A3 and every float32 tensor stay the parent's.
+EXPECTED_TO_DIFFER: dict[tuple[str, str], list[str]] = {
+    ("bfloat16", "A4"): ["A4 out", "A4 mean", "A4 var", *(f"A4 grad {k}" for k in A4_GRADS)],
+}
 
 
 def a4_inputs(dtype: str, dev, nb: int = 32):
@@ -159,7 +167,8 @@ def dump(root: str, dtype: str, out: str, planes_file: str) -> None:
 def a4_times(root: str, dtypes: list[str]) -> None:
     """Print one JSON line per dtype: ms per launch of A4f, A4b and the pair
     with the package under `root`, and A4f's and A4b's device ms by kernel
-    (A4f's conv stages, conv3_kernel or conv_fwd_kernel_fma, also summed)."""
+    (A4f's conv stages, conv3_kernel, conv_fwd_kernel_fma or
+    conv_fwd_kernel_tc, also summed)."""
     sys.path.insert(0, root)
     from electrocardio_panorama_tpu_torch.ops.kernels import decoder_train as a4
     from electrocardio_panorama_tpu_torch.profile_encoder import cuda_ms
@@ -190,7 +199,7 @@ def a4_times(root: str, dtypes: list[str]) -> None:
         rec.update(a4f_device_ms_by_kernel=fwin["by_kernel"], a4f_device_kernel_sum_ms=fwin["kernel_sum_ms"],
                    a4f_device_busy_ms=fwin["busy_ms"],
                    a4f_conv_device_ms=sum(v for k, v in fwin["by_kernel"].items()
-                                          if "conv3_kernel" in k or "conv_fwd_kernel_fma" in k))
+                                          if any(c in k for c in A4F_CONV_KERNELS)))
         win = device_window(lambda: [bwd() for _ in range(5)], 5, top=16)
         rec.update(a4b_device_ms_by_kernel=win["by_kernel"], a4b_device_kernel_sum_ms=win["kernel_sum_ms"],
                    a4b_device_busy_ms=win["busy_ms"], card=card)

@@ -30,15 +30,20 @@
 // one (group, channel) in a fixed order, so a repeat launch gives the same
 // bits.
 //
-// Bound: 113.4 MFLOP per sample forward against 128 KB of input, so the
-// forward is bound by operations. It runs one kernel per stage with every
+// Bound. The forward's four convs are 113.4 MFLOP per sample at output
+// resolution; at 3 groups of 32 that is 10.9 GFLOP, 0.163 ms at the float32
+// FMA peak of an H100, against the 113 MB (float32) or 88 MB (bfloat16)
+// that it reads and writes: x, the weights, the planes it keeps for the
+// backward (a1..a4 and h4 float32, h1..h3 in S), out and the moments. So
+// float32 is bound by operations; bfloat16, whose upsampled convs run at
+// input resolution on tensor cores (7.2 GFLOP, 0.007 ms at the bf16 peak),
+// by bytes (0.026 ms at 3.35 TB/s). It runs one kernel per stage with every
 // plane in device memory: a conv stage writes the pre-BN plane, a reduction
 // takes the moments, and an elementwise stage normalises, applies the affine
 // and the relu. The conv stages run on the FMA engine of decoder_train_fma.cuh
-// in float32 and on conv3_kernel below (direct SIMT) in bfloat16; the
-// moments, the normalisation and conv5 are SIMT in both. The backward reads
-// those planes; its products run on decoder_train_fma.cuh (float32) and
-// decoder_train_tc.cuh (bfloat16).
+// in float32 and on the tensor-core engine of decoder_train_tc.cuh in
+// bfloat16; the moments, the normalisation and conv5 are SIMT in both. The
+// backward reads those planes; its products run on the same two engines.
 
 #pragma once
 
@@ -50,10 +55,6 @@ namespace dtr {
 constexpr int C0 = 256, C1 = 128, C2 = 64;   // channels: x, after conv1/conv2, after conv3/conv4
 constexpr int T0 = 128, T1 = 256, T2 = 512;  // time steps: x, after the first up2, after the second
 constexpr int STAT_C = 128;                  // moments are padded to 128 channels per layer
-constexpr int CO_T = 64;                     // output channels per block
-constexpr int T_T = 64;                      // output time steps per block
-constexpr int CI_T = 16;                     // input channels staged per step
-constexpr int THREADS = 256;
 constexpr float EPS = 1e-5f;
 
 // The ctypes wrapper passes one host array of device pointers in this order
@@ -110,83 +111,6 @@ __device__ __forceinline__ float up2_at(const TI* x, int t, int th) {
   if (t & 1)
     return __fadd_rn(__fmul_rn(0.75f, xc), __fmul_rn(0.25f, round_s<S>(ld(x + min(k + 1, th - 1)))));
   return __fadd_rn(__fmul_rn(0.25f, round_s<S>(ld(x + max(k - 1, 0)))), __fmul_rn(0.75f, xc));
-}
-
-// The conv input at (sample n, channel c, position t), 0 <= t < T.
-template <typename S, typename TI, int UP>
-__device__ __forceinline__ float conv_input(const View<TI>& in, int n, int c, int t, int T) {
-  if (UP) return up2_at<S, TI>(in.row(n, c), t, T / 2);
-  return round_s<S>(ld(in.row(n, c) + t));
-}
-
-// out[n, o, t] = bias[o] + sum over (i, k) of W(k, o, i) * input(n, i, t + k - 1),
-// input = up2(round_s(in)) (UP) or round_s(in), zero outside [0, T);
-// W(k, o, i) = w[k*wsK + o*wsO + i*wsI]. bias may be null. The bfloat16
-// forward's conv stage (float32 runs on the FMA engine of decoder_train_fma.cuh).
-// grid: (samples, T / T_T, Cout / CO_T); out is [samples, Cout, T] float.
-template <typename S, typename TI, int UP>
-__global__ void __launch_bounds__(THREADS)
-conv3_kernel(View<TI> in, const S* __restrict__ w, long long wsK, long long wsO, long long wsI,
-             const float* __restrict__ bias, float* __restrict__ out, int Cin, int Cout, int T) {
-  __shared__ float xs[CI_T][T_T + 2];
-  __shared__ float ws[3][CI_T][CO_T];
-
-  const int n = blockIdx.x;
-  const int t0 = blockIdx.y * T_T;
-  const int co0 = blockIdx.z * CO_T;
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-
-  float acc[4][4];
-#pragma unroll
-  for (int j = 0; j < 4; ++j)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) acc[j][i] = 0.f;
-
-  for (int ci0 = 0; ci0 < Cin; ci0 += CI_T) {
-    __syncthreads();  // the previous step's tiles are consumed
-    for (int e = tid; e < CI_T * (T_T + 2); e += THREADS) {
-      const int ci = e / (T_T + 2), s = e % (T_T + 2);
-      const int c = ci0 + ci, t = t0 + s - 1;
-      float v = 0.f;
-      if (c < Cin && t >= 0 && t < T) v = conv_input<S, TI, UP>(in, n, c, t, T);
-      xs[ci][s] = v;
-    }
-    for (int e = tid; e < 3 * CI_T * CO_T; e += THREADS) {
-      const int ci = e % CI_T, co = (e / CI_T) % CO_T, k = e / (CI_T * CO_T);
-      float v = 0.f;
-      if (co0 + co < Cout && ci0 + ci < Cin) v = ld(w + k * wsK + (co0 + co) * wsO + (ci0 + ci) * wsI);
-      ws[k][ci][co] = v;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int ci = 0; ci < CI_T; ++ci) {
-#pragma unroll
-      for (int k = 0; k < 3; ++k) {
-        float xv[4], wv[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) xv[i] = xs[ci][tx + 16 * i + k];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) wv[j] = ws[k][ci][ty + 16 * j];
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-#pragma unroll
-          for (int i = 0; i < 4; ++i) acc[j][i] = fmaf(wv[j], xv[i], acc[j][i]);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int co = co0 + ty + 16 * j;
-    if (co >= Cout) continue;
-    const float b = bias != nullptr ? bias[co] : 0.f;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int t = t0 + tx + 16 * i;
-      if (t < T) out[((size_t)n * Cout + co) * T + t] = acc[j][i] + b;
-    }
-  }
 }
 
 // Fixed-order tree sum of the block's partials in shared memory (blockDim.x

@@ -2,9 +2,8 @@
 // and A4b, decoder_train_bwd.cu) for Hopper, sm_90a: the forward convs, the
 // data gradients and the weight gradients of conv1..conv4 as plain FMA at full
 // float32 (no TF32, no tensor cores), the conv biases' gradients riding in the
-// weight-gradient blocks. The bfloat16 instantiations run the forward convs on
-// conv3_kernel (decoder_train_common.cuh) and the backward's products on
-// decoder_train_tc.cuh; conv5, BatchNorm (moments, normalisation, backward),
+// weight-gradient blocks. The bfloat16 instantiations run the forward convs
+// and the backward's products on decoder_train_tc.cuh; conv5, BatchNorm (moments, normalisation, backward),
 // the sigmoid and the up2 adjoints stay SIMT in both.
 //
 // Replaces, with those, the TPU kernels
@@ -30,14 +29,15 @@
 // groups' sums meet in shared memory (group 0's plus group 1's, a fixed order)
 // and leave as float4 rows of the float plane [N, C, T]. The forward's
 // upsampled convs run over up2(x) and up2(h2) materialized per launch by
-// up2_plane_kernel (the values conv_input<float, float, 1> gives), so only the
-// order of the float32 sums differs from conv3_kernel's.
+// up2_plane_kernel (up2_at's values, those the plain version's upsample
+// gives), so only the order of the float32 sums differs from the plain
+// version.
 //
 // Weight gradients (dw_kernel_fma): dW_k[o][i] = sum_p dy[o][p] *
 // X[i][p + k - 1] over one of a fixed set of position ranges, p = (n, t), X
 // the conv's input plane [N, Cin, T]; up2(h2) and up2(x) of the upsampled
-// convs are materialized once per launch (up2_plane_kernel: the values
-// conv_input<float, float, 1> gives). A block takes a 64 (o) x 32 (i) tile
+// convs are materialized once per launch (up2_plane_kernel: up2_at's
+// values). A block takes a 64 (o) x 32 (i) tile
 // for all three taps with four groups of 64 threads. Per chunk of 64
 // positions (inside one sample) dy is staged as [o][p] and X as [i][row] with
 // the taps' halo, and group g walks the chunk's segment g (16 positions) with
@@ -389,7 +389,7 @@ __global__ void __launch_bounds__(DW_THREADS) dw_kernel_fma(const DwArgs a) {
 }
 
 // out [N, C, T] = up2 of the rows of `in` (T / 2 steps each), per sample:
-// the upsampled conv's input as conv_input<float, float, 1> gives it.
+// the upsampled conv's input, up2_at's values.
 // grid: (T / 1024, N*C), four steps a thread, one output row per blockIdx.y.
 __global__ void up2_plane_kernel(View<float> in, float* __restrict__ out, int C, int T) {
   const int row = blockIdx.y, t = 4 * (blockIdx.x * blockDim.x + threadIdx.x);

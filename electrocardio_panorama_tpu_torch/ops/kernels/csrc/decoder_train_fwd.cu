@@ -8,13 +8,16 @@
 // The four conv stages run on the engine of the storage type: in float32 the
 // FMA engine of decoder_train_fma.cuh (the upsampled convs over up2 planes
 // materialized in the workspace, the weights packed per launch), in bfloat16
-// conv3_kernel. The moments, BatchNorm + relu, conv5 and the sigmoid are the
-// SIMT kernels below in both.
+// the tensor-core engine of decoder_train_tc.cuh (conv_fwd_kernel_tc, the
+// upsampled convs at input resolution, the weights packed per launch into
+// the workspace). The moments, BatchNorm + relu, conv5 and the sigmoid are
+// the SIMT kernels below in both.
 
 #include <type_traits>
 
 #include "decoder_train_common.cuh"
 #include "decoder_train_fma.cuh"
+#include "decoder_train_tc.cuh"
 
 namespace dtr {
 
@@ -79,16 +82,6 @@ __global__ void conv5_sigmoid_kernel(const float* __restrict__ h4, const S* __re
   out[(size_t)n * T + t] = 1.0f / (1.0f + expf(-v));
 }
 
-// A forward conv with tap-major weights w [3, Cout, Cin] over `in`.
-template <typename S, typename TI, int UP>
-cudaError_t launch_conv(const View<TI>& in, const void* w, const void* bias, void* out, int N,
-                        int Cin, int Cout, int T, cudaStream_t st) {
-  conv3_kernel<S, TI, UP><<<dim3(N, T / T_T, Cout / CO_T), dim3(THREADS), 0, st>>>(
-      in, static_cast<const S*>(w), (long long)Cout * Cin, (long long)Cin, 1LL,
-      static_cast<const float*>(bias), static_cast<float*>(out), Cin, Cout, T);
-  return cudaGetLastError();
-}
-
 // Moments of layer `layer` (0..3) of plane a, then h = relu(bn(a)) as TO.
 template <typename TO>
 int bn_layer(void* const* P, int layer, const void* a, const void* gamma, const void* beta, void* h,
@@ -110,13 +103,18 @@ int bn_layer(void* const* P, int layer, const void* a, const void* gamma, const 
 // weights of the largest conv.
 inline long long fwd_workspace_floats(int G, int nb) { return (long long)G * nb * C0 * T1 + 3LL * C0 * C1; }
 
-// A conv stage on the engine of the storage type; ws is the float32
-// workspace (fwd_workspace_floats).
+// The bfloat16 forward's workspace, in floats: the packed bf16 weights of
+// the largest conv.
+constexpr long long FWD_WORKSPACE_FLOATS_BF16 = 3LL * C0 * C1 / 2;
+
+// A conv stage on the engine of the storage type; ws is the workspace
+// (fwd_workspace_floats, or FWD_WORKSPACE_FLOATS_BF16 in bfloat16).
 template <typename S, int UP>
 int conv_s(const View<S>& in, const void* w, const void* bias, void* out, int N, int Cin, int Cout, int T,
            float* ws, cudaStream_t st) {
   if constexpr (std::is_same<S, __nv_bfloat16>::value) {
-    return (int)launch_conv<S, S, UP>(in, w, bias, out, N, Cin, Cout, T, st);
+    return tc::forward_conv<UP>(in, w, bias, static_cast<float*>(out), N, Cin, Cout, T,
+                                reinterpret_cast<__nv_bfloat16*>(ws), st);
   } else {
     const float* xp = in.p;  // a planes view: [N, Cin, T]
     if (UP) {
@@ -156,22 +154,23 @@ int forward_chain(void* const* P, int G, int nb, float* ws, cudaStream_t st) {
 // S and h4 f32 of the same shapes; outputs out [G, nb, 512] f32 and mean, var
 // [G, 4, 128] f32, zero-filled by the caller (channels 64..127 of layers 3 and
 // 4 stay zero). The backward's entries of the table are not read. `workspace`
-// holds decoder_train_fwd_workspace_floats_<dtype>(G, nb) floats (none in
-// bfloat16). Returns 0 or the cudaError_t of the first failed launch.
+// holds decoder_train_fwd_workspace_floats_<dtype>(G, nb) floats. Returns 0
+// or the cudaError_t of the first failed launch.
 extern "C" long long decoder_train_fwd_workspace_floats_f32(int G, int nb) {
   return dtr::fwd_workspace_floats(G, nb);
 }
 
-extern "C" long long decoder_train_fwd_workspace_floats_bf16(int, int) { return 0; }
+extern "C" long long decoder_train_fwd_workspace_floats_bf16(int, int) { return dtr::FWD_WORKSPACE_FLOATS_BF16; }
 
 extern "C" int decoder_train_fwd_f32(void* const* ptrs, int G, int nb, void* workspace, void* stream) {
   if (G <= 0 || nb <= 0 || workspace == nullptr) return (int)cudaErrorInvalidValue;
   return dtr::forward_chain<float>(ptrs, G, nb, static_cast<float*>(workspace), static_cast<cudaStream_t>(stream));
 }
 
-extern "C" int decoder_train_fwd_bf16(void* const* ptrs, int G, int nb, void*, void* stream) {
-  if (G <= 0 || nb <= 0) return (int)cudaErrorInvalidValue;
-  return dtr::forward_chain<__nv_bfloat16>(ptrs, G, nb, nullptr, static_cast<cudaStream_t>(stream));
+extern "C" int decoder_train_fwd_bf16(void* const* ptrs, int G, int nb, void* workspace, void* stream) {
+  if (G <= 0 || nb <= 0 || workspace == nullptr) return (int)cudaErrorInvalidValue;
+  return dtr::forward_chain<__nv_bfloat16>(ptrs, G, nb, static_cast<float*>(workspace),
+                                           static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int decoder_train_fwd_nptr() { return dtr::NPTR; }
@@ -195,5 +194,29 @@ extern "C" int decoder_train_fwd_fma_resources(int* out) {
   out[1] = (int)a.localSizeBytes;
   out[2] = (int)a.sharedSizeBytes;
   out[3] = n;
+  return 0;
+}
+
+// The bfloat16 forward conv kernel's resources on this device, for the plain
+// convs (up 0) or the upsampled ones (up 1): out[0..4] = registers per
+// thread, local memory bytes per thread (spills), static shared memory
+// bytes, the dynamic shared memory bytes of its largest launch (conv2 or
+// conv1), and the blocks one SM holds at once with those. Returns 0 or a
+// cudaError_t.
+extern "C" int decoder_train_fwd_tc_resources(int up, int* out) {
+  const void* fn = up ? reinterpret_cast<const void*>(dtr::tc::conv_fwd_kernel_tc<1>)
+                      : reinterpret_cast<const void*>(dtr::tc::conv_fwd_kernel_tc<0>);
+  const int bytes = dtr::tc::fwd_smem_bytes(up, up ? dtr::C0 : dtr::C1);
+  cudaFuncAttributes a;
+  cudaError_t e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (e == cudaSuccess) e = cudaFuncGetAttributes(&a, fn);
+  int n = 0;
+  if (e == cudaSuccess) e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, fn, dtr::tc::THREADS, bytes);
+  if (e != cudaSuccess) return (int)e;
+  out[0] = a.numRegs;
+  out[1] = (int)a.localSizeBytes;
+  out[2] = (int)a.sharedSizeBytes;
+  out[3] = bytes;
+  out[4] = n;
   return 0;
 }

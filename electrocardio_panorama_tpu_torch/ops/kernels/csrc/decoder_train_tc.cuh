@@ -1,15 +1,16 @@
-// The bfloat16 tensor-core engine of the fused train decoder's backward (A4b,
-// decoder_train_bwd.cu, the only file that includes it; it reduces its partials
-// with the SIMT dw_reduce_kernel and bias_reduce_kernel of
-// decoder_train_common.cuh) for Hopper, sm_90a:
-// the data gradients and the weight gradients of conv1..conv4 as implicit
-// GEMMs on `mma.sync.m16n8k16` bf16 products with float32 accumulators. The
-// float32 instantiation runs them on the FMA engine of decoder_train_fma.cuh,
-// and conv5 (one output channel), the BN and sigmoid backward and the up2
-// adjoints stay SIMT in both.
+// The bfloat16 tensor-core engine of the fused train decoder, backward (A4b,
+// decoder_train_bwd.cu) and forward (A4f, decoder_train_fwd.cu; the backward
+// reduces its partials with the SIMT dw_reduce_kernel and bias_reduce_kernel
+// of decoder_train_common.cuh) for Hopper, sm_90a: the data gradients, the
+// weight gradients and the forward convs of conv1..conv4 as implicit GEMMs on
+// `mma.sync.m16n8k16` bf16 products with float32 accumulators. The float32
+// instantiations run them on the FMA engine of decoder_train_fma.cuh, and
+// conv5 (one output channel), BatchNorm (moments, normalisation, backward),
+// the sigmoid and the up2 adjoints stay SIMT in both.
 //
-// Replaces, with those, the TPU kernel
-// electrocardio_panorama_tpu/ops/pallas/decoder_train.py::_train_bwd_kernel.
+// Replaces, with those, the TPU kernels
+// electrocardio_panorama_tpu/ops/pallas/decoder_train.py::_train_fwd_kernel
+// and ::_train_bwd_kernel.
 //
 // Rounding. A float gradient plane rounds to bf16 (nearest even) as it is
 // staged, where the plain version rounds it (round_s, GradRound), and the
@@ -53,11 +54,35 @@
 // which the clamped halo would count). The phases are two halves of the
 // block rows, dy read with stride 2.
 //
+// Forward convs (conv_fwd_kernel_tc). The weights are packed once per conv
+// launch into [Cin/8][tap][Cout][8] (pack_fwd_tc_kernel) and streamed FK input
+// channels at a time, every tap's rows together, with cp.async into a double
+// buffer; x's rows are staged once per block as [C/8][row][8], as dy is for a
+// data gradient, and h1..h3 and x are bf16 already, so every product is of
+// two bf16 values and only the order of the float32 sums differs from the
+// plain version. conv2 and conv4 (UP 0): 64 output channels x 64 positions of
+// one sample per block, four warps of 32 x 32, a tap a row offset, the bias
+// added in the store. conv1 and conv3 run at input resolution (UP 1): up2 is
+// linear per channel in time, so conv3(up2(x); W)[t] = b + sum over k of
+// up2(Y_k)[t + k - 1] with Y_k = W_k x, a 1x1 product per tap at x's Th
+// steps, half the products of the conv over up2(x). A block takes 64 output
+// channels x 3 taps against 64 input positions and the halo of one on each
+// side (staged rows clamped into the sample, up2's edge; 72 rows, 9 n8
+// tiles), each warp 16 channels x 3 taps; Y, never rounded, goes through
+// shared memory, and the epilogue forms each of the 128 output steps from
+// the up2 weights in float32, leaving out a tap that falls on the conv's zero
+// padding. Neither the up2 weights nor up2(x) are rounded to bf16: the plain
+// version multiplies up2's float32 values.
+//
 // Bound. At 3 groups of 32 the eight products are 21.8 GFLOP, 0.022 ms at
 // the bf16 peak of an H100, and the kept planes, dout and the gradients are
 // about 0.1 GB, 0.03 ms at 3.35 TB/s. The float gradient planes (12.6 MB
 // each) that the SIMT BN, conv5 and up2 stages pass between the engine's
 // launches, and the staging of its operands, set the time, not the products.
+// The forward's four convs at input resolution are 7.2 GFLOP (0.007 ms)
+// against the 88 MB that A4f reads and writes (x, the weights, the planes it
+// keeps for the backward, out and the moments; 0.026 ms): bytes bound it, and
+// the conv stages write each pre-BN plane once, in float32.
 
 #pragma once
 
@@ -482,6 +507,240 @@ inline int weight_grad(const float* dy, const View<bf16>& x, int Cin, int Cout, 
   DTR_TRY(cudaGetLastError());
   dw_reduce_up_kernel<<<blocks_for((long long)Cout * Cin, 256), 256, 0, st>>>(part, ranges, Cout, Cin, N, dye,
                                                                               xe, o);
+  return (int)cudaGetLastError();
+}
+
+// ------------------------------------------------------------- forward convs
+// wp[((c*3 + k)*Cout + o)*8 + j] = w[k, o, c*8 + j] from the forward's weights
+// w [3, Cout, Cin]: one 16-byte A row per (input-channel chunk, tap, output
+// channel), so a chunk of FK input channels holds every tap's rows.
+__global__ void pack_fwd_tc_kernel(const bf16* __restrict__ w, int Cout, int Cin, bf16* __restrict__ wp) {
+  const int e = blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= 3 * Cout * Cin) return;
+  const int j = e & 7;
+  int r = e >> 3;
+  const int o = r % Cout;
+  r /= Cout;
+  const int k = r % 3, c = r / 3;
+  wp[e] = w[((long long)k * Cout + o) * Cin + c * 8 + j];
+}
+
+constexpr int FK = 32;                       // input channels per streamed weight chunk
+constexpr int FW_ITEMS = FK / 8 * 3 * BM;    // its 16-byte A rows: [FK/8][tap][BM]
+constexpr int UP_ROWS = 72;                  // staged input rows of an upsampled conv: 9 n8 tiles
+constexpr int UP_YST = 72;                   // floats per row of Y in shared memory
+
+inline int fwd_smem_bytes(int up, int Cin) {
+  const int stage = (Cin / 8) * (up ? UP_ROWS : ROWS) * 16 + 2 * FW_ITEMS * 16;
+  const int ys = up ? 3 * BM * UP_YST * 4 : 0;
+  return stage > ys ? stage : ys;
+}
+
+// A forward conv of one block: BM output channels over BN input positions
+// t0 .. t0 + 63 of sample n (Tin steps a row; see the header comment).
+// UP 0: out[n, o, t] = bias[o] + sum over (k, i) of w[k, o, i] * x[n, i, t + k - 1],
+// x zero outside [0, Tin). UP 1: the same conv over up2(x), 2*Tin steps,
+// from Y_k = W_k x at input resolution. grid: (N*Tin / BN, Cout / BM); out
+// [N, Cout, T] float, T = Tin or 2*Tin; Cin a multiple of FK.
+template <int UP>
+__global__ void __launch_bounds__(THREADS) conv_fwd_kernel_tc(View<bf16> x, const bf16* __restrict__ wp,
+                                                             const float* __restrict__ bias, float* __restrict__ out,
+                                                             int Cin, int Cout, int Tin) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int XR = UP ? UP_ROWS : ROWS;
+  const int chunks = Cin / 8;
+  uint4* xs = reinterpret_cast<uint4*>(smem);  // [chunks][XR]: rows t0 - 1 .. t0 - 1 + XR - 1
+  uint4* ws = xs + chunks * XR;                // [2][FW_ITEMS]
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int p0 = blockIdx.x * BN;
+  const int n = p0 / Tin, t0 = p0 - n * Tin;
+  const int o0 = blockIdx.y * BM;
+  const uint4* wsrc = reinterpret_cast<const uint4*>(wp) + o0;
+  auto stage_w = [&](int kc, int buf) {
+    uint4* dst = ws + buf * FW_ITEMS;
+    const uint4* src = wsrc + (long long)kc * (FK / 8) * 3 * Cout;
+    for (int e = tid; e < FW_ITEMS; e += THREADS) {
+      const int r = e / BM, o = e - r * BM;  // r = chunk * 3 + tap
+      cp_async16(smem_u32(dst + e), src + (long long)r * Cout + o);
+    }
+    cp_async_commit();
+  };
+  stage_w(0, 0);
+
+  // x's rows as channel chunks, X_BATCH rows of 8 channels per thread in
+  // flight; an upsampled conv clamps its rows into the sample (up2's edge),
+  // a plain one reads zeros outside it (the conv's padding)
+  const bf16 zero = __float2bfloat16_rn(0.f);
+  const int x_items = chunks * XR;
+  for (int e0 = tid; e0 < x_items; e0 += X_BATCH * THREADS) {
+    bf16 v[X_BATCH][8];
+#pragma unroll
+    for (int u = 0; u < X_BATCH; ++u) {
+      const int e = e0 + u * THREADS;
+      const int c = e / XR;
+      int t = t0 - 1 + (e - c * XR);
+      bool in = e < x_items;
+      if (UP)
+        t = min(max(t, 0), Tin - 1);
+      else
+        in = in && t >= 0 && t < Tin;
+      const bf16* src = x.row(n, (in ? c : 0) * 8) + (in ? t : 0);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) v[u][j] = in ? src[(long long)j * x.sC] : zero;
+    }
+#pragma unroll
+    for (int u = 0; u < X_BATCH; ++u)
+      if (e0 + u * THREADS < x_items) xs[e0 + u * THREADS] = pack8_bf16(v[u]);
+  }
+
+  const uint32_t xs_u = smem_u32(xs), ws_u = smem_u32(ws);
+  const int nk = Cin / FK;
+  auto next_chunk = [&](int kc) {
+    if (kc + 1 < nk) {
+      stage_w(kc + 1, (kc + 1) & 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+  };
+
+  if constexpr (UP) {
+    // warp w: output channels 16w .. 16w + 15 for all three taps, over the
+    // 9 n8 tiles of staged rows; acc[k][j][2h + i]: channel 16w + lane/4 + 8h,
+    // row 8j + 2*(lane%4) + i, i.e. Y_k at u = t0 - 1 + row
+    float acc[3][9][4];
+#pragma unroll
+    for (int k = 0; k < 3; ++k)
+#pragma unroll
+      for (int j = 0; j < 9; ++j)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) acc[k][j][r] = 0.f;
+    const uint32_t a_lane = ((lane >> 4) * 3 * BM + 16 * warp + (lane & 15)) * 16;
+    const uint32_t b_lane = (((lane >> 3) & 1) * XR + ((lane >> 4) << 3) + (lane & 7)) * 16;
+    for (int kc = 0; kc < nk; ++kc) {
+      next_chunk(kc);
+      const uint32_t wbase = ws_u + (kc & 1) * FW_ITEMS * 16 + a_lane;
+#pragma unroll
+      for (int s = 0; s < FK / 16; ++s) {
+        uint32_t a[3][4];
+#pragma unroll
+        for (int k = 0; k < 3; ++k) ldmatrix_x4(a[k], wbase + (2 * s * 3 + k) * BM * 16);
+        const uint32_t xbase = xs_u + (kc * (FK / 8) + 2 * s) * XR * 16 + b_lane;
+#pragma unroll
+        for (int jp = 0; jp < 4; ++jp) {
+          uint32_t b[4];
+          ldmatrix_x4(b, xbase + jp * 16 * 16);
+#pragma unroll
+          for (int k = 0; k < 3; ++k) {
+            mma(acc[k][2 * jp], a[k], b[0], b[1]);
+            mma(acc[k][2 * jp + 1], a[k], b[2], b[3]);
+          }
+        }
+        uint32_t b[2];
+        ldmatrix_x2(b, xbase + 64 * 16);
+#pragma unroll
+        for (int k = 0; k < 3; ++k) mma(acc[k][8], a[k], b[0], b[1]);
+      }
+      __syncthreads();  // before the next chunk's copy reuses this buffer
+    }
+
+    // Y [3][BM][UP_YST] float over the staging buffers, then each output
+    // step from its up2 terms in float32: up2(y)[2m] = .25 y[m - 1] + .75 y[m],
+    // up2(y)[2m + 1] = .75 y[m] + .25 y[m + 1] (the clamp is in the staged
+    // rows), a tap that falls on the conv's padding (outside [0, 2*Tin))
+    // left out
+    float* ys = reinterpret_cast<float*>(smem);
+#pragma unroll
+    for (int k = 0; k < 3; ++k)
+#pragma unroll
+      for (int j = 0; j < 9; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int o = 16 * warp + (lane >> 2) + 8 * h;
+          *reinterpret_cast<float2*>(ys + (k * BM + o) * UP_YST + 8 * j + 2 * (lane & 3)) =
+              make_float2(acc[k][j][2 * h], acc[k][j][2 * h + 1]);
+        }
+    __syncthreads();
+    const int T = 2 * Tin;
+    for (int e = tid; e < BM * (2 * BN / 4); e += THREADS) {
+      const int o = e / (2 * BN / 4), q = e - o * (2 * BN / 4);
+      const float b = bias[o0 + o];
+      float v[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int d0 = 4 * q + i - 1;  // tap 0's up2 step, relative to 2*t0
+        float sum = 0.f;
+#pragma unroll
+        for (int k = 0; k < 3; ++k) {
+          const int d = d0 + k, s = 2 * t0 + d;
+          if (s < 0 || s >= T) continue;
+          const float* y = ys + (k * BM + o) * UP_YST + (d >> 1) + 1;  // Y_k at u = t0 + floor(d / 2)
+          sum += (d & 1) ? 0.75f * y[0] + 0.25f * y[1] : 0.25f * y[-1] + 0.75f * y[0];
+        }
+        v[i] = sum + b;
+      }
+      *reinterpret_cast<float4*>(out + ((long long)n * Cout + o0 + o) * T + 2 * t0 + 4 * q) =
+          make_float4(v[0], v[1], v[2], v[3]);
+    }
+  } else {
+    // four warps of 32 x 32 as the data gradient's; tap k is row offset k
+    const int wm = warp >> 1, wn = warp & 1;
+    float acc[2][4][4];
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) acc[mi][ni][r] = 0.f;
+    const uint32_t a_lane = ((lane >> 4) * 3 * BM + wm * 32 + (lane & 15)) * 16;
+    uint32_t b_lane[2];
+#pragma unroll
+    for (int nj = 0; nj < 2; ++nj)
+      b_lane[nj] = (((lane >> 3) & 1) * XR + wn * 32 + nj * 16 + ((lane >> 4) << 3) + (lane & 7)) * 16;
+    for (int kc = 0; kc < nk; ++kc) {
+      next_chunk(kc);
+      const uint32_t wbase = ws_u + (kc & 1) * FW_ITEMS * 16 + a_lane;
+#pragma unroll
+      for (int s = 0; s < FK / 16; ++s) {
+        const uint32_t xbase = xs_u + (kc * (FK / 8) + 2 * s) * XR * 16;
+#pragma unroll
+        for (int k = 0; k < 3; ++k)
+          warp_step(acc, wbase + (2 * s * 3 + k) * BM * 16, 16 * 16, xbase + k * 16 + b_lane[0],
+                    xbase + k * 16 + b_lane[1]);
+      }
+      __syncthreads();  // before the next chunk's copy reuses this buffer
+    }
+    // acc[mi][ni][2h + j]: output channel wm*32 + mi*16 + lane/4 + 8h,
+    // position wn*32 + ni*8 + 2*(lane%4) + j
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int o = o0 + wm * 32 + mi * 16 + (lane >> 2) + 8 * h;
+        const float b = bias[o];
+        float* row = out + ((long long)n * Cout + o) * Tin + t0 + wn * 32 + 2 * (lane & 3);
+#pragma unroll
+        for (int ni = 0; ni < 4; ++ni)
+          *reinterpret_cast<float2*>(row + ni * 8) = make_float2(acc[mi][ni][2 * h] + b, acc[mi][ni][2 * h + 1] + b);
+      }
+  }
+}
+
+// A forward conv with weights w [3, Cout, Cin] (bf16) and bias [Cout]
+// (float) over x, Tin steps a row: out [N, Cout, T] float, T = Tin, or
+// 2*Tin over up2(x) when UP. wp holds 3*Cout*Cin bf16.
+template <int UP>
+inline int forward_conv(const View<bf16>& x, const void* w, const void* bias, float* out, int N, int Cin, int Cout,
+                        int T, bf16* wp, cudaStream_t st) {
+  const int Tin = UP ? T / 2 : T;
+  if (Cin % FK || Cout % BM || Tin % BN) return (int)cudaErrorInvalidValue;
+  pack_fwd_tc_kernel<<<blocks_for(3LL * Cout * Cin, 256), 256, 0, st>>>(static_cast<const bf16*>(w), Cout, Cin, wp);
+  DTR_TRY(cudaGetLastError());
+  const int bytes = fwd_smem_bytes(UP, Cin);
+  DTR_TRY(cudaFuncSetAttribute(conv_fwd_kernel_tc<UP>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes));
+  conv_fwd_kernel_tc<UP><<<dim3(N * Tin / BN, Cout / BM), THREADS, bytes, st>>>(
+      x, wp, static_cast<const float*>(bias), out, Cin, Cout, Tin);
   return (int)cudaGetLastError();
 }
 

@@ -1,10 +1,10 @@
 // Inline PTX wrappers shared by the engines of the fused encoder
 // (encoder_tc.cuh, encoder_fma.cuh) and of the fused train decoder's backward
-// (decoder_train_tc.cuh, decoder_train_fma.cuh), for Hopper, sm_90a: cp.async
-// copies into shared memory (the FMA engines' with zero fill), ldmatrix loads
-// of 8x8 bf16 matrices, the mma.sync m16n8k16 bf16 product with float32
-// accumulators and a warp's 32 x 32 tile of them, and packing floats into
-// bf16 pairs.
+// and forward (decoder_train_tc.cuh, decoder_train_fma.cuh), for Hopper,
+// sm_90a: cp.async copies into shared memory (the FMA engines' with zero
+// fill), ldmatrix loads of two or four 8x8 bf16 matrices, the mma.sync
+// m16n8k16 bf16 product with float32 accumulators and a warp's 32 x 32 tile
+// of them, and packing floats into bf16 pairs.
 
 #pragma once
 
@@ -37,6 +37,9 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(addr));
+}
+__device__ __forceinline__ void ldmatrix_x2(uint32_t (&r)[2], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n" : "=r"(r[0]), "=r"(r[1]) : "r"(addr));
 }
 __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], uint32_t addr) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"

@@ -45,11 +45,13 @@ bfloat16 agrees with the JAX package within a tolerance, not bitwise.
 A4f runs its four conv stages, and A4b its conv data and weight gradients,
 on the engine of the storage type: in float32 a register-tiled FMA engine at
 full float32 (`csrc/decoder_train_fma.cuh`; A4f's upsampled convs read up2
-planes it materializes in a workspace, with the values the SIMT conv read), in
-bfloat16 the SIMT `conv3_kernel` for A4f and tensor cores for A4b
-(`csrc/decoder_train_tc.cuh`; every product is of two bfloat16 values, as
-here). Only the order of the float32 sums differs from this module's plain
-version. BatchNorm's moments come from a two-pass reduction kernel in both.
+planes it materializes in a workspace, with this module's upsample values),
+in bfloat16 `mma.sync` tensor cores (`csrc/decoder_train_tc.cuh`; every
+product is of two bfloat16 values, as here; A4f's upsampled convs run at
+input resolution, the identity of `upconv_taps_plain`, with no extra
+rounding). Only the order of the float32 sums differs from this module's
+plain version. BatchNorm's moments come from a two-pass reduction kernel in
+both.
 
 `train_decode_groups_plain(..., float64=True)` runs the function in float64
 with no rounding, from float32 or bfloat16 storage: a third point that both
@@ -202,6 +204,21 @@ def train_decode_groups_plain(w: dict, x, *, float64: bool = False):
         h = bn_relu(conv(h, 4), 4)
         out = torch.sigmoid(conv(R(h), 5) / 3.0)
     return out.reshape(G, nb, SEQ), torch.stack(means, dim=1), torch.stack(variances, dim=1)
+
+
+def upconv_taps_plain(x, w, b):
+    """conv3(up2(x); w) + b at x's resolution, the form of bfloat16 A4f's
+    upsampled convs: up2 is linear per channel in time, so with Y_k = w[k] x
+    (a 1x1 product per tap over x's Th steps) the conv is b + sum over k of
+    up2(Y_k)[t + k - 1], a tap outside [0, 2*Th) left out (the conv's zero
+    padding). x [N, Cin, Th], w [3, Cout, Cin] tap-major, b [Cout]; returns
+    [N, Cout, 2*Th] in x's dtype. Not on the main path: the tests hold it
+    against `conv1d(upsample_linear_x2(x))`."""
+    y = upsample_linear_x2(torch.einsum("koi,nit->knot", w.to(x.dtype), x))  # [3, N, Cout, 2*Th]
+    out = y[1] + b.to(x.dtype)[:, None]
+    out[..., 1:] += y[0][..., :-1]
+    out[..., :-1] += y[2][..., 1:]
+    return out
 
 
 # ------------------------------------------------------------------ kernels

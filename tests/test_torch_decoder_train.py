@@ -32,7 +32,16 @@ Tolerances:
     within `BF16_MOMENTS_BAR` (allclose form, `moments_distance`) of the
     float64 pass on 16 input sets, and the kernel within 1e-3 of the plain
     version; the bar is derived from the plain version alone (its comment in
-    ops/kernels/decoder_train.py).
+    ops/kernels/decoder_train.py);
+  * bfloat16 A4f on the tensor-core engine against the plain version (card
+    only): out 2e-3 and corr > 0.9999, the moments bar above, bitwise
+    repeats;
+  * the input-resolution form of an upsampled conv (`upconv_taps_plain`, the
+    bfloat16 forward's identity) against conv1d(upsample_linear_x2(x)):
+    rtol = atol = 1e-6 in float32 (the same products summed in another
+    order, values of order 1) and 1e-12 in float64; against the JAX
+    package's `_upconv_fwd` with float32 weights: rtol = atol = 2e-6 (its
+    products run as two float32 matmuls, W_k x then the upsample matrix).
 """
 
 import numpy as np
@@ -545,7 +554,9 @@ def test_cuda_f32_backward_matches_plain(setup, nb):
 def test_wrapper_entry_points_are_exported(monkeypatch):
     """Every C entry point the wrapper loads, per kind and storage type (the
     launch, the pointer count, the workspace size in floats of A4f and of
-    A4b), is exported by its source."""
+    A4b), is exported by its source; and every entry a source exports is
+    loaded by the wrapper or called by chip_smoke.py (the engines'
+    resources)."""
     import os
     import re
 
@@ -564,9 +575,11 @@ def test_wrapper_entry_points_are_exported(monkeypatch):
             self.names.add(name)
             return Fn(name)
 
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     for kind in ("fwd", "bwd"):
         src = open(os.path.join(os.path.dirname(dt.__file__), "csrc", f"decoder_train_{kind}.cu")).read()
         exported = set(re.findall(r'extern "C" [\w\s\*]*?\b(decoder_train_\w+)\(', src))
+        loaded = set()
         for sd in (torch.float32, torch.bfloat16):
             lib = Lib()
             monkeypatch.setattr(dt.build, "load", lambda name, lib=lib: lib)
@@ -575,26 +588,41 @@ def test_wrapper_entry_points_are_exported(monkeypatch):
                 dt._raise(lib, kind, 1)
             assert len(lib.names) == 4 and lib.names <= exported, (kind, sd, lib.names)
             assert f"decoder_train_{kind}_workspace_floats_{dt._suffix(sd)}" in lib.names
+            loaded |= lib.names
+        used = set(re.findall(r"\blib\.(decoder_train_\w+)", open(os.path.join(root, "chip_smoke.py")).read()))
+        assert exported <= loaded | used, (kind, exported - loaded - used)
 
 
 def test_compare_builds_names_the_a4_tensors_expected_to_differ():
     """compare_builds names the A4 tensors this checkout's kernels move
-    against the parent's: none, in either dtype or any family, so a
-    comparison is as expected exactly when every tensor is bitwise equal."""
+    against the parent's: in bfloat16 all 22 of the A4 family (A4f's convs
+    moved to tensor cores, and A4b reads A4f's planes), none in float32 or
+    in any other family. A bfloat16 A4 comparison is as expected exactly
+    when every one of the 22 differs; every other one exactly when all are
+    bitwise equal."""
     from electrocardio_panorama_tpu_torch import compare_builds as CB
 
     d = CB.a4_dump(dt, "float32", torch.device("cpu"), nb=2)
-    assert len(d) == 22 and CB.EXPECTED_TO_DIFFER == {}
+    assert len(d) == 22 and set(CB.EXPECTED_TO_DIFFER) == {("bfloat16", "A4")}
+    assert sorted(CB.EXPECTED_TO_DIFFER["bfloat16", "A4"]) == sorted(d)
     same = CB.compare(d, d)
     other = {k: v + 1 for k, v in d.items()}
     one_moved = {**d, "A4 grad w5": d["A4 grad w5"] + 1}
-    for dtype in ("float32", "bfloat16"):
-        assert CB.against_expectation(same, dtype, "A4")["as_expected"]
-        r = CB.against_expectation(CB.compare(d, other), dtype, "A4")
-        assert not r["as_expected"] and r["expected_to_differ"] == [] and r["bitwise_equal"] == 0
-        assert not CB.against_expectation(CB.compare(d, one_moved), dtype, "A4")["as_expected"]
+    one_kept = {**other, "A4 grad w5": d["A4 grad w5"]}
+    f32 = "float32"
+    assert CB.against_expectation(same, f32, "A4")["as_expected"]
+    r = CB.against_expectation(CB.compare(d, other), f32, "A4")
+    assert not r["as_expected"] and r["expected_to_differ"] == [] and r["bitwise_equal"] == 0
+    assert not CB.against_expectation(CB.compare(d, one_moved), f32, "A4")["as_expected"]
+    bf16 = "bfloat16"
+    r = CB.against_expectation(CB.compare(d, other), bf16, "A4")
+    assert r["as_expected"] and len(r["expected_to_differ"]) == 22 and r["bitwise_equal"] == 0
+    for moved in (same, CB.compare(d, one_moved), CB.compare(d, one_kept)):
+        assert not CB.against_expectation(moved, bf16, "A4")["as_expected"]
+    for dtype in (f32, bf16):
         for family in ("A2/A3", "A4b on shared planes"):
             assert CB.EXPECTED_TO_DIFFER.get((dtype, family), []) == []
+    assert {"conv3_kernel", "conv_fwd_kernel_fma", "conv_fwd_kernel_tc"} == set(CB.A4F_CONV_KERNELS)
 
 
 def test_compare_builds_a4_float64_distance():
@@ -637,8 +665,8 @@ def test_compare_builds_a4b_shared_planes_family():
 
 def test_chip_smoke_forward_entry_points_are_exported():
     """Every decoder_train_fwd C entry that chip_smoke.py calls (the float32
-    forward engine's resources and workspace size) is exported by
-    csrc/decoder_train_fwd.cu."""
+    FMA and the bfloat16 tensor-core forward engines' resources and
+    workspace sizes) is exported by csrc/decoder_train_fwd.cu."""
     import os
     import re
 
@@ -646,7 +674,8 @@ def test_chip_smoke_forward_entry_points_are_exported():
     src = open(os.path.join(os.path.dirname(dt.__file__), "csrc", "decoder_train_fwd.cu")).read()
     exported = set(re.findall(r'extern "C" [\w\s\*]*?\b(decoder_train_fwd_\w+)\(', src))
     used = set(re.findall(r"\blib\.(decoder_train_fwd_\w+)", open(os.path.join(root, "chip_smoke.py")).read()))
-    assert {"decoder_train_fwd_fma_resources", "decoder_train_fwd_workspace_floats_f32"} <= used
+    assert {"decoder_train_fwd_fma_resources", "decoder_train_fwd_workspace_floats_f32",
+            "decoder_train_fwd_tc_resources", "decoder_train_fwd_workspace_floats_bf16"} <= used
     assert used <= exported, used - exported
 
 
@@ -682,6 +711,111 @@ def test_cuda_f32_forward_fma_matches_plain_and_repeats(setup, nb):
     assert dt.LAUNCHES["fwd_float32"] == before + 4
     kept = dt.backward_cuda(w_open, x, dout, planes)
     own = dt.backward_cuda(w_open, x, dout)
+    torch.cuda.synchronize()
+    for i, name in enumerate(["x", *dt.WNAMES]):
+        assert torch.equal(kept[i], own[i]), name
+
+
+@pytest.mark.parametrize("T", [2, 4, 128])
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_upconv_taps_plain_matches_conv_of_upsample(T, dtype):
+    """The input-resolution form of an upsampled conv equals the conv over
+    up2(x): at T = 2 and 4 every step is near a clamped edge or the zero
+    padding, at 128 most are inside."""
+    from electrocardio_panorama_tpu_torch.ops.convs import conv1d
+    from electrocardio_panorama_tpu_torch.ops.resample import upsample_linear_x2
+
+    sd = getattr(torch, dtype)
+    rng = np.random.default_rng(T)
+    x = torch.tensor(rng.normal(0, 1, (3, 32, T)), dtype=sd)
+    w = torch.tensor(rng.normal(0, (3 * 32) ** -0.5, (3, 16, 32)), dtype=sd)
+    b = torch.tensor(rng.normal(0, 0.1, 16), dtype=sd)
+    ref = conv1d(upsample_linear_x2(x), w.permute(1, 2, 0), padding=1) + b[:, None]
+    got = dt.upconv_taps_plain(x, w, b)
+    tol = 1e-6 if dtype == "float32" else 1e-12
+    assert got.shape == (3, 16, 2 * T) and got.dtype == sd
+    torch.testing.assert_close(got, ref, rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("T", [2, 4, 128])
+def test_upconv_taps_plain_matches_jax_upconv_fwd(T):
+    """The same form against the JAX package's `_upconv_fwd` (sum over taps
+    of W_k h times the tap's shifted upsample matrix) with float32 weights,
+    on the CPU, over 2 samples laid out as the JAX kernel takes them."""
+    from electrocardio_panorama_tpu.ops.pallas.decoder_fused import upsample_shift_matrices
+
+    rng = np.random.default_rng(100 + T)
+    nb = 2
+    x = rng.normal(0, 1, (nb, 64, T)).astype(np.float32)
+    w = rng.normal(0, (3 * 64) ** -0.5, (3, 32, 64)).astype(np.float32)
+    b = rng.normal(0, 0.1, 32).astype(np.float32)
+    h = jnp.asarray(x.transpose(1, 0, 2).reshape(64, nb * T))
+    ref = jt._upconv_fwd(h, jnp.asarray(w), jnp.asarray(b), upsample_shift_matrices(T, jnp.float32), nb, T)
+    ref = torch.tensor(np.asarray(ref)).reshape(32, nb, 2 * T).permute(1, 0, 2)
+    got = dt.upconv_taps_plain(torch.tensor(x), torch.tensor(w), torch.tensor(b))
+    torch.testing.assert_close(got, ref, rtol=2e-6, atol=2e-6)
+
+
+@pytest.mark.parametrize("shape", [(3, 16, 16), (3, 64, 64), (3, 128, 256)])
+def test_pack_fwd_tc_index_formula(shape):
+    """bfloat16 A4f's weight packing (csrc/decoder_train_tc.cuh
+    `pack_fwd_tc_kernel`, whose index arithmetic is repeated here line for
+    line) writes w [3, Cout, Cin] in the layout [Cin/8, 3, Cout, 8]; read
+    back as the kernel's A rows (chunk c, tap k, output channel o: 8 input
+    channels), it gives each tap's 1x1 product."""
+    import os
+    import re
+
+    src = open(os.path.join(os.path.dirname(dt.__file__), "csrc", "decoder_train_tc.cuh")).read()
+    body = re.search(r"pack_fwd_tc_kernel\(.*?\n}", src, re.S).group(0)
+    assert "wp[e] = w[((long long)k * Cout + o) * Cin + c * 8 + j];" in body
+    assert "const int o = r % Cout;" in body and "const int k = r % 3, c = r / 3;" in body
+    K, Cout, Cin = shape
+    w = torch.arange(K * Cout * Cin, dtype=torch.float64).reshape(shape)
+    flat = w.reshape(-1)
+    e = torch.arange(K * Cout * Cin)
+    j, r = e & 7, e >> 3
+    o, r = r % Cout, r // Cout
+    k, c = r % 3, r // 3
+    packed = flat[(k * Cout + o) * Cin + c * 8 + j]
+    rows = w.reshape(K, Cout, Cin // 8, 8).permute(2, 0, 1, 3)
+    assert torch.equal(packed, rows.reshape(-1))
+    x = torch.tensor(np.random.default_rng(0).normal(0, 1, (Cin, 5)))
+    for tap in range(3):
+        y = sum(rows[ch, tap] @ x[8 * ch:8 * ch + 8] for ch in range(Cin // 8))
+        torch.testing.assert_close(y, w[tap] @ x, rtol=1e-12, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nb", [32, 2])
+def test_cuda_bf16_forward_tc_matches_plain_and_repeats(setup, nb):
+    """bfloat16 A4f (its convs on the tensor-core engine, the upsampled ones
+    at input resolution) against the plain version at the PERF.md section 2
+    bars: out max abs error 2e-3 and corr > 0.9999, the moments within
+    BF16_MOMENTS_BAR of the float64 pass and within 1e-3 of the plain
+    version; every plane bitwise equal across a repeat launch; and A4b on
+    these kept planes bitwise equal to backward_cuda without planes (its own
+    A4f launch)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    w, x, dout = _cuda_inputs(setup[3], "bfloat16", nb)
+    before = dt.LAUNCHES["fwd_bfloat16"]
+    with torch.no_grad():
+        ref = dt.train_decode_groups_plain(w, x)
+    planes = dt.forward_cuda(w, x)
+    again = dt.forward_cuda(w, x)
+    torch.cuda.synchronize()
+    assert dt.LAUNCHES["fwd_bfloat16"] == before + 2
+    assert list(planes) == dt.PLANES
+    for k in dt.PLANES:
+        assert torch.equal(planes[k], again[k]), k
+        assert bool(torch.isfinite(planes[k].float()).all()), k
+    torch.testing.assert_close(planes["OUT"], ref[0], rtol=0, atol=2e-3)
+    corr = float(torch.corrcoef(torch.stack([planes["OUT"].flatten(), ref[0].flatten()]))[0, 1])
+    assert corr > 0.9999, corr
+    assert_bf16_moments_bar(w, x, (planes["MEAN"], planes["VAR"]), ref[1:])
+    kept = dt.backward_cuda(w, x, dout, planes)
+    own = dt.backward_cuda(w, x, dout)
     torch.cuda.synchronize()
     for i, name in enumerate(["x", *dt.WNAMES]):
         assert torch.equal(kept[i], own[i]), name
