@@ -65,6 +65,7 @@ import torch.nn.functional as F
 from electrocardio_panorama_tpu_torch.ops.convs import conv1d, full_f32
 from electrocardio_panorama_tpu_torch.ops.kernels import build
 from electrocardio_panorama_tpu_torch.ops.resample import upsample_linear_x2
+from electrocardio_panorama_tpu_torch.utils.profiling import span
 
 FEAT = 128
 SEQ = 512
@@ -587,8 +588,9 @@ def fused_decode_views(folded: dict, latent_all, gates=None, *, enc=None, v_tile
             y1 = basis_y1(folded, latent_all, views)
             out = decode_y1_plain(y1, folded) if plain else decode_y1(y1, folded)
         else:
-            U = basis_planes(folded, latent_all).to(sd)
-            ep = basis_coeffs(views).to(sd).float()  # the mix coefficients round like U
+            with span("ecgpan.basis_planes", device=latent_all.device):
+                U = basis_planes(folded, latent_all).to(sd)
+                ep = basis_coeffs(views).to(sd).float()  # the mix coefficients round like U
             out = decode_basis_plain(U, ep, folded) if plain else decode_basis(U, ep, folded)
     else:
         latent, g = latent_all.to(sd), views.float()

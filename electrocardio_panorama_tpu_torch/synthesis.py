@@ -21,6 +21,7 @@ import torch
 from electrocardio_panorama_tpu_torch.ops import angular_encode
 from electrocardio_panorama_tpu_torch.ops.kernels.decoder_fused import fold_decoder_bn, fused_decode_views
 from electrocardio_panorama_tpu_torch.utils import resolve_device
+from electrocardio_panorama_tpu_torch.utils.profiling import span
 
 # Outputs stay on the device within a window and drain to the host once the
 # window passes this many bytes: no per-batch sync, and device memory stays
@@ -77,15 +78,17 @@ class PanoramaGenerator:
     @torch.no_grad()
     def render(self, data, input_theta, rois, views) -> torch.Tensor:
         """data [B,L,512], views [V,2] (shared) or [B,V,2] -> [B,V,512] on the device."""
-        latent = self.encode(data, input_theta, rois)
-        v = torch.as_tensor(views, device=self.device).to(self.dtype)
-        if v.ndim == 2:
-            v = v[None].expand(latent.shape[0], *v.shape)
-        if self._folded is not None:
-            enc = angular_encode(v, self.model.theta_encoder_len)
-            return fused_decode_views(self._folded, latent, enc=enc, v_tile=self.v_tile,
-                                      plain=self.plain)
-        return self.model.decode_views(self.params, self.bn_state, latent, v)
+        with span("ecgpan.render"):
+            with span("ecgpan.encode", device=self.device):
+                latent = self.encode(data, input_theta, rois)
+            v = torch.as_tensor(views, device=self.device).to(self.dtype)
+            if v.ndim == 2:
+                v = v[None].expand(latent.shape[0], *v.shape)
+            if self._folded is not None:
+                enc = angular_encode(v, self.model.theta_encoder_len)
+                return fused_decode_views(self._folded, latent, enc=enc, v_tile=self.v_tile,
+                                          plain=self.plain)
+            return self.model.decode_views(self.params, self.bn_state, latent, v)
 
     def render_dataset(self, loader, views: np.ndarray, out_path: str | None = None,
                        max_batches: int | None = None):

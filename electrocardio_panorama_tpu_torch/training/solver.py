@@ -62,10 +62,22 @@ from electrocardio_panorama_tpu_torch.training.optim import (
     state_by_key,
 )
 from electrocardio_panorama_tpu_torch.training.precision import cast_floats, cast_floats_f32
-from electrocardio_panorama_tpu_torch.utils import ScalarWriter, resolve_device
+from electrocardio_panorama_tpu_torch.utils import ScalarWriter, profiling, resolve_device
+from electrocardio_panorama_tpu_torch.utils.profiling import span
 
 _TRAIN_KEYS = ("data", "input_theta", "target_theta", "rois", "target_view", "noise")
 _EVAL_KEYS = ("data", "input_theta", "target_theta", "rois", "rest_theta", "target_view", "rest_view")
+
+
+def _waited(dl):
+    """The loader's batches, each taken under the span ecgpan.loader_wait."""
+    batches, end = iter(dl), object()
+    while True:
+        with span("ecgpan.loader_wait"):
+            batch = next(batches, end)
+        if batch is end:
+            return
+        yield batch
 
 
 def gen_lead_count(cfg) -> int:
@@ -241,37 +253,43 @@ class Solver:
         """One step; updates `params` in place through `opt` and returns
         (new bn_state, loss vector [4] on the device)."""
         cfg = self.cfg
-        data, it, tt, rois, tv, noise = self._tensors(batch, _TRAIN_KEYS)
-        gen = torch.Generator(device=self.device).manual_seed(step_seed(cfg.seed, epoch, step))
-        batch_all = data.shape[0] * self.world  # every rank draws the global batch's masks
-        masks = self.draw_masks(gen, batch_all)
-        if self.world > 1 and masks is not None:
-            masks = local_rows(masks, local_batch_slice(batch_all), batch_all)
-        opt.zero_grad(set_to_none=True)
-        with self._precision():
-            p = cast_floats(params, self.compute_dtype) if self.mixed else params
-            if self.mixed:
-                data, it, tt = (t.to(self.compute_dtype) for t in (data, it, tt))
-            (out, sp, sl), new_bn = self.model.apply(
-                p, bn_state, data, it, tt, rois, phase="train", masks=masks, shuffle_idx=(i1, i2),
-                train_decode_fn=self._train_dec_fn, **self._encode_hook(self._train_enc_fn))
-            if self.mixed:
-                out, sp, sl = (t.float() for t in (out, sp, sl))
-                new_bn = cast_floats_f32(new_bn)
-            if cfg.DATA.noise:
-                out = out + noise[:, None, :]
-            loss, lo1, lo2, lo3 = self.loss(out, sp, sl, tv[:, None, :], cfg)
-            loss.backward()
-        if self.mesh is not None:
-            all_reduce_mean_([p.grad for p in params.values() if p.grad is not None])
-        opt.step()
-        new_bn = {k: v.detach() for k, v in new_bn.items()}
-        lvec = torch.stack([loss, lo1, lo2, lo3]).detach().float()
-        if self.mesh is not None:
-            # A4f's moments are each rank's own: averaging the running stats
-            # they chained keeps the replicas one model
-            own = [v for v in new_bn.values() if v.is_floating_point()] if self.train_decoder == "fused" else []
-            all_reduce_mean_([lvec, *own])
+        with span("ecgpan.train_step"):
+            with span("ecgpan.train_step.inputs"):
+                data, it, tt, rois, tv, noise = self._tensors(batch, _TRAIN_KEYS)
+                gen = torch.Generator(device=self.device).manual_seed(step_seed(cfg.seed, epoch, step))
+                batch_all = data.shape[0] * self.world  # every rank draws the global batch's masks
+                masks = self.draw_masks(gen, batch_all)
+                if self.world > 1 and masks is not None:
+                    masks = local_rows(masks, local_batch_slice(batch_all), batch_all)
+                opt.zero_grad(set_to_none=True)
+            with self._precision():
+                with span("ecgpan.train_step.forward"):
+                    p = cast_floats(params, self.compute_dtype) if self.mixed else params
+                    if self.mixed:
+                        data, it, tt = (t.to(self.compute_dtype) for t in (data, it, tt))
+                    (out, sp, sl), new_bn = self.model.apply(
+                        p, bn_state, data, it, tt, rois, phase="train", masks=masks, shuffle_idx=(i1, i2),
+                        train_decode_fn=self._train_dec_fn, **self._encode_hook(self._train_enc_fn))
+                    if self.mixed:
+                        out, sp, sl = (t.float() for t in (out, sp, sl))
+                        new_bn = cast_floats_f32(new_bn)
+                    if cfg.DATA.noise:
+                        out = out + noise[:, None, :]
+                    loss, lo1, lo2, lo3 = self.loss(out, sp, sl, tv[:, None, :], cfg)
+                with span("ecgpan.train_step.backward"):
+                    loss.backward()
+            with span("ecgpan.train_step.update"):
+                if self.mesh is not None:
+                    all_reduce_mean_([p.grad for p in params.values() if p.grad is not None])
+                opt.step()
+                new_bn = {k: v.detach() for k, v in new_bn.items()}
+                lvec = torch.stack([loss, lo1, lo2, lo3]).detach().float()
+                if self.mesh is not None:
+                    # A4f's moments are each rank's own: averaging the running stats
+                    # they chained keeps the replicas one model
+                    own = ([v for v in new_bn.values() if v.is_floating_point()]
+                           if self.train_decoder == "fused" else [])
+                    all_reduce_mean_([lvec, *own])
         return new_bn, lvec
 
     @torch.no_grad()
@@ -326,7 +344,7 @@ class Solver:
             np.random.SeedSequence([cfg.seed, epoch, 0x5EED if phase == "train" else 0xE7A1]))
         max_steps = cfg.TPU.steps_per_epoch or None
         n_views = 0
-        for step_i, batch in enumerate(dl):
+        for step_i, batch in enumerate(_waited(dl)):
             if max_steps and step_i >= max_steps:
                 break
             if phase == "train":
@@ -489,13 +507,15 @@ class Solver:
         return {k: v.detach() for k, v in params.items()}, bn_state
 
     def _start_profile(self, profile_dir: str):
-        """A torch.profiler trace of the first epoch's train steps; best
+        """A torch.profiler trace of the first epoch's train steps, with the
+        program's spans (utils/profiling.py) recorded while it runs; best
         effort, as in the JAX package."""
         try:
             acts = [torch.profiler.ProfilerActivity.CPU]
             if self.device.type == "cuda":
                 acts.append(torch.profiler.ProfilerActivity.CUDA)
             prof = torch.profiler.profile(activities=acts)
+            profiling.reset()
             prof.__enter__()
             return prof
         except Exception as e:  # noqa: BLE001 — profiling is best effort
@@ -503,14 +523,23 @@ class Solver:
             return None
 
     def _stop_profile(self, prof, profile_dir: str) -> None:
+        """Writes train_trace.json with the spans merged in on their threads,
+        prints each span's calls, host ms and self ms a call, and empties the
+        recorder."""
         try:
             prof.__exit__(None, None, None)
             os.makedirs(profile_dir, exist_ok=True)
             path = os.path.join(profile_dir, "train_trace.json")
             prof.export_chrome_trace(path)
+            snap = profiling.snapshot()
+            profiling.merge_chrome_trace(path, snap["spans"])
             print(f"profiler trace written to {path}")
+            for line in profiling.summary_lines(snap):
+                print(line)
         except Exception as e:  # noqa: BLE001 — profiling is best effort
             print(f"profiler trace not written: {e}")
+        finally:
+            profiling.reset()
 
     # ------------------------------------------------------------------- val
     def val(self, dl_test, epoch: int = -1):
