@@ -23,9 +23,10 @@ result line:
                float64 pass; float32 and bfloat16, timed with CUDA events;
   4. render  — the port's render entry point (`render.main`) on a generated
                synthetic corpus with a seeded random checkpoint, over the
-               84-view grid, in float32 and bfloat16, through A1; launch
-               counts read around that run; held against the same run with
-               the plain decode; then `fused_decode_views(gates=)` and
+               84-view grid, in float32 and bfloat16, through A2 (eval
+               form) and A1; launch counts read around that run; held
+               against the same run with the plain encode and decode;
+               then `fused_decode_views(gates=)` and
                `(enc=, head='y1')` on the same checkpoint and the first
                batch's latents, held against the rendered views;
   5. train   — the port's trainer (`main.main`) on a generated synthetic

@@ -23,6 +23,7 @@ from electrocardio_panorama_tpu_torch.models.nefnet2 import (
     init_nefnet2,
     nefnet2_apply,
 )
+from electrocardio_panorama_tpu_torch.ops.kernels.encoder_fused import make_fused_encode_fn
 
 __all__ = [
     "build_model",
@@ -64,9 +65,20 @@ class NefNetDef:
         self.decode_views = partial(decode_views, theta_encoder_len=theta_encoder_len)
         self.gen_ecg = partial(gen_ecg, lead_num=lead_num, theta_encoder_len=theta_encoder_len)
 
+    def fused_encode(self, *, plain: bool = False):
+        """`encode` through the fused encoder A2 in eval form: kernel A2 on a
+        CUDA tensor (`plain=True`: its plain version), the plain version on
+        the CPU; the mlp1 gate, ROI ramp, roi_reverse and lead means stay
+        plain around it (ops/kernels/encoder_fused.py::make_fused_encode_fn)."""
+        return make_fused_encode_fn(self.lead_num, self.theta_encoder_len, plain=plain)
+
 
 class NefNet2Def:
     """Bound Nef-Net2 definition (the shared single-lead tower)."""
+
+    # A2 computes Nef-Net's lead-grouped chain, not the shared tower and its
+    # single_conv_z1/z2: Nef-Net2 always encodes eagerly
+    fused_encode = None
 
     def __init__(self, lead_num: int, theta_encoder_len: int = 1, dtype=torch.float32):
         self.lead_num = lead_num

@@ -123,17 +123,21 @@ def build_sharded_panorama(model_def, mesh, *, data_axis: str = "data", view_axi
     views, and the outputs are gathered over both axes. B divides the data
     axis and V the view axis.
 
-    `use_fused=True` decodes with the streamed-basis kernel A1 (BN folded
-    from the replicated params, in `compute_dtype` storage), exactly as
-    `PanoramaGenerator.render` does; otherwise the eager decoder."""
+    `use_fused=True` encodes and decodes exactly as `PanoramaGenerator.render`
+    does: through the model definition's fused encode where it has one (A2)
+    and the streamed-basis kernel A1 (BN folded from the replicated params,
+    in `compute_dtype` storage); otherwise the eager encoder and decoder."""
     from electrocardio_panorama_tpu_torch.ops.kernels.decoder_fused import fold_decoder_bn, fused_decode_views
+    from electrocardio_panorama_tpu_torch.synthesis import encode_fn
+
+    encode = encode_fn(model_def, use_fused)
 
     @torch.no_grad()
     def render(params, bn_state, data, input_theta, rois, views):
         bs, vs = _shard(data.shape[0], mesh, data_axis), _shard(views.shape[0], mesh, view_axis)
         p = {k: v.to(compute_dtype) for k, v in params.items()}
-        latent = model_def.encode(p, data[bs].to(compute_dtype), input_theta[bs].to(compute_dtype),
-                                  rois[bs]).latent_all
+        latent = encode(p, data[bs].to(compute_dtype), input_theta[bs].to(compute_dtype),
+                        rois[bs]).latent_all
         v = views[vs].to(compute_dtype)[None].expand(latent.shape[0], -1, -1)
         if use_fused:
             folded = fold_decoder_bn(params, bn_state, dtype=compute_dtype)

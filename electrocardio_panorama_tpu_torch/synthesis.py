@@ -41,15 +41,26 @@ def theta_grid(n_theta: int = 7, n_phi: int = 12) -> np.ndarray:
     return grid.reshape(-1, 2).astype(np.float32)
 
 
+def encode_fn(model_def, use_fused: bool, *, plain: bool = False):
+    """The render's encode, `fn(params, x, input_thetas, rois) ->
+    NefNetLatents`: under `use_fused` the model definition's fused encode
+    where it has one, else its eager `encode`."""
+    if use_fused and model_def.fused_encode is not None:
+        return model_def.fused_encode(plain=plain)
+    return model_def.encode
+
+
 class PanoramaGenerator:
     """Encode-once / decode-many panorama renderer (demo.ipynb Generator).
 
     `use_fused=True` decodes with the streamed-basis kernel (BN folded, the
-    gate/upsample/conv1 head as a rank-J basis mix). `compute_dtype`
-    bfloat16 runs the encode in bf16 and the kernel with bf16 storage and
+    gate/upsample/conv1 head as a rank-J basis mix) and, where the model
+    definition has one (`fused_encode`: Nef-Net's, kernel A2 in eval form),
+    encodes through the fused encoder; Nef-Net2 encodes eagerly. `compute_dtype`
+    bfloat16 runs the encode in bf16 and the kernels with bf16 storage and
     float32 accumulation; float32 keeps full precision throughout.
-    `plain=True` runs the kernel's plain PyTorch version instead, on the same
-    device, to hold the kernel against it.
+    `plain=True` runs the kernels' plain PyTorch versions instead, on the same
+    device, to hold the kernels against them.
     """
 
     def __init__(self, model_def, params, bn_state, *, compute_dtype=torch.float32,
@@ -66,10 +77,11 @@ class PanoramaGenerator:
                        for k, v in params.items()}
         self._folded = (fold_decoder_bn(params, self.bn_state, dtype=compute_dtype)
                         if use_fused else None)
+        self._encode = encode_fn(model_def, use_fused, plain=plain)
 
     @torch.no_grad()
     def encode(self, data, input_theta, rois):
-        return self.model.encode(
+        return self._encode(
             self.params, torch.as_tensor(data, device=self.device).to(self.dtype),
             torch.as_tensor(input_theta, device=self.device).to(self.dtype),
             torch.as_tensor(rois, device=self.device),

@@ -365,6 +365,45 @@ def test_cuda_f32_launches_repeat_bitwise():
         assert torch.equal(a, b), name
 
 
+@pytest.mark.cuda
+def test_cuda_f32_fused_render_encodes_through_a2():
+    """A float32 Nef-Net render under use_fused at B=32 and 12 views launches
+    A2 once (its eval form), and its views match the eager encode's latents
+    decoded by A1 on the same inputs within the render cell's view_gap limit
+    (max |difference| 1.3e-6, portbench/cells/nefnet.render.f32.v336.json)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    from electrocardio_panorama_tpu_torch.models import NefNetDef, init_nefnet
+    from electrocardio_panorama_tpu_torch.ops import angular_encode
+    from electrocardio_panorama_tpu_torch.ops.kernels.decoder_fused import fused_decode_views
+    from electrocardio_panorama_tpu_torch.synthesis import PanoramaGenerator, theta_grid
+
+    dev, batch = torch.device("cuda"), 32
+    params, state = init_nefnet(torch.Generator().manual_seed(2), lead_num=L, device=dev)
+    rng = np.random.default_rng(2)
+    for k in state:  # non-trivial BatchNorm running statistics for A1's fold
+        if k.endswith("running_mean"):
+            state[k] = torch.tensor(rng.normal(0, 0.1, state[k].shape), dtype=torch.float32, device=dev)
+        elif k.endswith("running_var"):
+            state[k] = torch.tensor(rng.uniform(0.5, 2.0, state[k].shape), dtype=torch.float32, device=dev)
+    _, _, x, thetas, rois, _ = make_inputs(2, batch, L)
+    inputs = [torch.tensor(a, device=dev) for a in (x, thetas, rois)]
+    views = torch.tensor(theta_grid(3, 4), device=dev)
+    model = NefNetDef(L)
+    gen = PanoramaGenerator(model, params, state, use_fused=True, device=dev)
+    before = TE.LAUNCHES["fwd_float32"]
+    out = gen.render(*inputs, views)
+    torch.cuda.synchronize()
+    assert TE.LAUNCHES["fwd_float32"] - before == 1
+    with torch.no_grad():
+        latent = model.encode(params, *inputs).latent_all
+        enc = angular_encode(views[None].expand(batch, -1, -1), model.theta_encoder_len)
+        want = fused_decode_views(gen._folded, latent, enc=enc, v_tile=gen.v_tile)
+    assert out.shape == want.shape == (batch, 12, 512)
+    gap = float((out.double() - want.double()).abs().max())
+    assert gap <= 1.3e-6, f"view gap {gap:.3e}"
+
+
 def test_backward_sections_name_the_chain():
     """The section timer's names, in the order the A3 chain marks them."""
     assert TE.SECTIONS == ["recompute", "z2_conv2", "roi + z-blocks", "w_conv + gate", "tower",

@@ -26,8 +26,12 @@ from electrocardio_panorama_tpu_torch import render
 from electrocardio_panorama_tpu_torch.config import load_cfg
 from electrocardio_panorama_tpu_torch.data import build_dataset
 from electrocardio_panorama_tpu_torch.synthesis import PanoramaGenerator, theta_grid
-from electrocardio_panorama_tpu_torch.models import NefNetDef
+from electrocardio_panorama_tpu_torch.models import NefNet2Def, NefNetDef, init_nefnet, init_nefnet2
+from electrocardio_panorama_tpu_torch.ops.kernels import encoder_fused as TE
+from electrocardio_panorama_tpu_torch.parallel import build_sharded_panorama, make_mesh
 from electrocardio_panorama_tpu_torch.training.checkpoint import CheckPointer
+
+from _torch_ranks import no_group  # noqa: F401 (a fixture)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 YML = os.path.join(REPO, "configs", "nef_net_synthetic.yml")
@@ -160,3 +164,58 @@ def test_render_full_record_renders_every_beat(corpus):
     pano, batch = render_full_record(gen, ds, 0, theta_grid(3, 4))
     assert pano.shape == (ds.num_beats(0), 12, 512)
     assert batch["rois"].shape == (ds.num_beats(0), 7, 2)
+
+
+def few_view_batch(B=2):
+    rng = np.random.default_rng(0)
+    pts = np.array([0, 64, 128, 192, 256, 320, 448, 512])
+    rois = np.broadcast_to(np.stack([pts[:-1], pts[1:]], 1), (B, 7, 2)).copy()
+    return (rng.uniform(0, 1, (B, 3, 512)).astype(np.float32),
+            rng.uniform(-np.pi, np.pi, (B, 3, 2)).astype(np.float32), rois)
+
+
+@pytest.fixture
+def a2_calls(monkeypatch):
+    """Spy on encoder_fused.encode_fused: the masks argument of each call
+    (None is the eval form)."""
+    calls, real = [], TE.encode_fused
+
+    def spy(w, x, gate, ramp, masks=None, **kw):
+        calls.append(masks)
+        return real(w, x, gate, ramp, masks, **kw)
+
+    monkeypatch.setattr(TE, "encode_fused", spy)
+    return calls
+
+
+@pytest.mark.parametrize("model,use_fused,through_a2", [
+    ("nefnet", True, True), ("nefnet", False, False), ("nefnet2", True, False), ("nefnet2", False, False)])
+def test_render_encode_route(a2_calls, model, use_fused, through_a2):
+    """A Nef-Net generator under use_fused encodes through the fused encoder
+    A2 in eval form (its plain version on the CPU), one call a render, and
+    its latents match the eager encode's within float32 rounding; Nef-Net2,
+    and any generator without use_fused, keep the eager encode."""
+    model_def, init = (NefNetDef(3), init_nefnet) if model == "nefnet" else (NefNet2Def(3), init_nefnet2)
+    params, state = init(torch.Generator().manual_seed(0), lead_num=3)
+    data, it, rois = few_view_batch()
+    gen = PanoramaGenerator(model_def, params, state, device="cpu", use_fused=use_fused)
+    out = gen.render(data, it, rois, theta_grid(3, 4))
+    assert out.shape == (2, 12, 512) and a2_calls == ([None] if through_a2 else [])
+    latent = gen.encode(data, it, rois)
+    want = model_def.encode(params, torch.as_tensor(data), torch.as_tensor(it), torch.as_tensor(rois)).latent_all
+    torch.testing.assert_close(latent, want, rtol=0, atol=1e-6)
+
+
+def test_sharded_panorama_encodes_as_the_generator(a2_calls, no_group):
+    """build_sharded_panorama(use_fused=True) takes the generator's encode
+    route (A2's eval form for Nef-Net), bitwise the generator's render on a
+    (1, 1) mesh."""
+    params, state = init_nefnet(torch.Generator().manual_seed(0), lead_num=3)
+    data, it, rois = few_view_batch()
+    views = theta_grid(3, 4)
+    render = build_sharded_panorama(NefNetDef(3), make_mesh((1, 1), ("data", "view"), device="cpu"),
+                                    use_fused=True)
+    out = render(params, state, *(torch.as_tensor(a) for a in (data, it, rois, views)))
+    assert a2_calls == [None]
+    ref = PanoramaGenerator(NefNetDef(3), params, state, device="cpu", use_fused=True).render(data, it, rois, views)
+    assert a2_calls == [None, None] and torch.equal(out, ref)
