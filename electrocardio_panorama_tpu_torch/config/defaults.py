@@ -32,6 +32,7 @@ def get_default_cfg() -> Node:
         6.57354042, 6.31023917, 6.05944371, 7.05612394,
     ]
     cfg.DATA.lead_num = 1
+    cfg.DATA.in_channel = 8            # model_resnet1d: leads of a record (Tianchi: 8)
     cfg.DATA.noise = False
     cfg.DATA.train_data_mode = "normal"
     cfg.DATA.super_mode = "normal"
@@ -53,6 +54,9 @@ def get_default_cfg() -> Node:
     cfg.MODEL.loss = "v1"
     cfg.MODEL.jitter_factor = 0.0
     cfg.MODEL.theta_L = 1
+    # model_resnet1d, the reference's 1-D ResNet classifier (resnet_1d.py)
+    cfg.MODEL.arch = "resnet50"
+    cfg.MODEL.num_classes = 55
 
     # ---------------------------------------------------------------- SOLVER
     # reference codes/config/default.py:44-55

@@ -12,15 +12,17 @@ from electrocardio_panorama_tpu_torch.data.pipeline import BeatLoader, collate
 from electrocardio_panorama_tpu_torch.data.ptb import PTBBeatDataset, reorder_ptb_leads
 from electrocardio_panorama_tpu_torch.data.synthetic import (
     generate_ptb_dataset,
+    generate_tianchi_classification_dataset,
     generate_tianchi_dataset,
 )
-from electrocardio_panorama_tpu_torch.data.tianchi import TianchiBeatDataset
+from electrocardio_panorama_tpu_torch.data.tianchi import TianchiBeatDataset, TianchiClassificationDataset
 
 __all__ = [
     "build_dataset",
     "BeatLoader",
     "collate",
     "TianchiBeatDataset",
+    "TianchiClassificationDataset",
     "PTBBeatDataset",
     "LEAD_THETA",
     "LEAD_NAMES",
@@ -31,13 +33,43 @@ __all__ = [
     "beat_rois",
     "build_meta",
     "generate_tianchi_dataset",
+    "generate_tianchi_classification_dataset",
     "generate_ptb_dataset",
 ]
+
+
+def _synthetic_classification_corpus(cfg) -> None:
+    """Point DATA.train_label_path / train_data_root at the labelled corpus
+    under DATA.synthetic_root, writing it there first unless one of the
+    configured size (synthetic_n_train + synthetic_n_test records,
+    MODEL.num_classes labels) is there already."""
+    import os
+
+    root = cfg.DATA.synthetic_root
+    n = int(cfg.DATA.synthetic_n_train) + int(cfg.DATA.synthetic_n_test)
+    csv_path = os.path.join(root, "labels.csv")
+    have = None
+    if os.path.exists(csv_path):
+        with open(csv_path) as f:
+            lines = [ln for ln in f.read().splitlines() if ln.strip()]
+        have = (len(lines) - 1, len(lines[0].split(",")) - 3 if lines else 0)
+    if have == (n, cfg.MODEL.num_classes):
+        overrides = {"train_label_path": csv_path, "train_data_root": os.path.join(root, "npy_data", "tianchi_cls")}
+    else:
+        overrides = generate_tianchi_classification_dataset(root, n_records=n, num_classes=cfg.MODEL.num_classes)
+    for k, v in overrides.items():
+        cfg.DATA[k] = v
 
 
 def build_dataset(cfg, phase: str):
     if cfg.DATA.dataset == "tianchi":
         return TianchiBeatDataset(cfg, phase)
+    if cfg.DATA.dataset == "tianchi_cls":
+        # the classifier's records and labels (model_resnet1d); a synthetic
+        # labelled corpus under DATA.synthetic_root when that is set
+        if cfg.DATA.synthetic_root:
+            _synthetic_classification_corpus(cfg)
+        return TianchiClassificationDataset(cfg, phase)
     if cfg.DATA.dataset == "ptbv2":
         # path patching parity (reference dataset/__init__.py:8-14) — but
         # only for keys still at their config defaults, so an explicit

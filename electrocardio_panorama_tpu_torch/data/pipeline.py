@@ -20,7 +20,7 @@ import numpy as np
 
 _STACK_KEYS = (
     "data", "rois", "input_theta", "target_view", "target_theta",
-    "ori_data", "rest_view", "rest_theta", "noise",
+    "ori_data", "rest_view", "rest_theta", "noise", "label",
 )
 
 

@@ -12,6 +12,7 @@ corpus in environments without the real Tianchi download.
 
 from __future__ import annotations
 
+import csv
 import json
 import os
 
@@ -117,6 +118,40 @@ def generate_tianchi_dataset(
         "train_data_root": npy_dir,
         "train_label_root": json_dir,
     }
+
+
+def multi_hot(rng: np.random.Generator, num_classes: int, p: float = 0.05) -> np.ndarray:
+    """A record's multi-hot labels [num_classes]: each class at probability
+    `p`, and one class drawn uniformly where none came up."""
+    y = (rng.random(num_classes) < p).astype(np.int64)
+    if not y.any():
+        y[int(rng.integers(num_classes))] = 1
+    return y
+
+
+def generate_tianchi_classification_dataset(root: str, n_records: int = 24, num_classes: int = 55, seed: int = 0,
+                                            total_len: int = 5000, label_p: float = 0.05) -> dict:
+    """Write a labelled corpus in the layout TianchiClassificationDataset
+    reads (reference EcgTianChiDataset, tianchi.py:10-43): npy_data/tianchi_cls/
+    synth_NNNNN.npy (`synth_record`'s 8 x total_len records) and labels.csv,
+    whose columns are the file name, age, sex and `num_classes` 0/1 label
+    columns (`multi_hot`). Returns the DATA.* config overrides pointing at it."""
+    rng = np.random.default_rng(seed)
+    npy_dir = os.path.join(root, "npy_data", "tianchi_cls")
+    os.makedirs(npy_dir, exist_ok=True)
+    csv_path = os.path.join(root, "labels.csv")
+    rows = []
+    for i in range(n_records):
+        name = f"synth_{i:05d}.npy"
+        data, _ = synth_record(rng, total_len)
+        np.save(os.path.join(npy_dir, name), data)
+        age, sex = int(rng.integers(18, 90)), ("FEMALE", "MALE")[int(rng.integers(2))]
+        rows.append([name, age, sex, *multi_hot(rng, num_classes, label_p).tolist()])
+    with open(csv_path, "w", newline="") as f:
+        w = csv.writer(f)
+        w.writerow(["file_name", "age", "sex", *(f"label_{c:02d}" for c in range(num_classes))])
+        w.writerows(rows)
+    return {"train_label_path": csv_path, "train_data_root": npy_dir}
 
 
 def generate_ptb_dataset(root: str, n_patients: int = 4, records_per_patient: int = 2, seed: int = 0) -> dict:

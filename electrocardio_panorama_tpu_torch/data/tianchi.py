@@ -114,35 +114,49 @@ class TianchiBeatDataset:
         return self.get_beat(index, beat_index, rng)
 
 
+def split_80_20(n: int, seed: int) -> tuple[np.ndarray, np.ndarray]:
+    """(train rows, test rows) of `n` rows: sklearn's
+    `train_test_split(shuffle=True, test_size=0.2, random_state=seed)`, which
+    the reference calls, written out (a RandomState permutation; the test
+    rows are its first ceil(n / 5)), so no sklearn is needed. A seed of 2**32
+    or more, which sklearn refuses, is taken modulo 2**32."""
+    perm = np.random.RandomState(seed % 2**32).permutation(n)
+    n_test = int(np.ceil(0.2 * n))
+    return perm[n_test:], perm[:n_test]
+
+
 class TianchiClassificationDataset:
-    """Legacy CSV-driven multi-label classification reader (reference
+    """CSV-driven multi-label classification reader (reference
     EcgTianChiDataset, tianchi.py:10-43): column 0 is the npy filename, columns
-    3+ are the binary labels; 80/20 train/test split seeded by cfg.seed.
-    Off the Nef-Net path; feeds the full resnet1d classifier."""
+    3+ are the binary labels; 80/20 train/test split seeded by cfg.seed
+    (`split_80_20`). Feeds the 1-D ResNet classifier (MODEL.model
+    'model_resnet1d', DATA.dataset 'tianchi_cls'); an example is {"data":
+    [leads, T] float32, "label": [C] int64}, which `collate` stacks. Reads the
+    CSV with the csv module, as the card's machine has no pandas."""
 
     def __init__(self, cfg, phase: str, transform=None):
-        import pandas as pd
-        from sklearn.model_selection import train_test_split
+        import csv
 
-        all_set = pd.read_csv(cfg.DATA.train_label_path)
-        self.label_name = all_set.columns.values[3:]
+        with open(cfg.DATA.train_label_path, newline="") as f:
+            rows = list(csv.reader(f))
+        self.label_name = np.array(rows[0][3:])
+        rows = [r for r in rows[1:] if r]
         self.data_root = cfg.DATA.train_data_root
-        train_set, test_set = train_test_split(
-            all_set, shuffle=True, test_size=0.2, random_state=cfg.seed
-        )
-        self.dataset = train_set if phase == "train" else test_set
-        self.label = self.dataset.iloc[:, 3:].values.astype(np.int64)
+        train_rows, test_rows = split_80_20(len(rows), cfg.seed)
+        keep = train_rows if phase == "train" else test_rows
+        self.files = [rows[i][0] for i in keep]
+        self.label = np.array([[int(float(v)) for v in rows[i][3:]] for i in keep],
+                              dtype=np.int64).reshape(len(keep), len(self.label_name))
         self.transform = transform
 
     def __len__(self) -> int:
-        return len(self.dataset)
+        return len(self.files)
 
-    def __getitem__(self, index: int, rng=None):
-        path = os.path.join(self.data_root, self.dataset.iloc[index, 0])
-        data = np.load(path).astype(np.float64)
+    def __getitem__(self, index: int, rng=None) -> dict:
+        data = np.load(os.path.join(self.data_root, self.files[index])).astype(np.float64)
         if self.transform is not None:
             data = self.transform(data)
-        return data.astype(np.float32), self.label[index]
+        return {"data": data.astype(np.float32), "label": self.label[index], "id": self.files[index]}
 
     def get_label_weight(self) -> np.ndarray:
         """Inverse-frequency example weights for WeightedRandomSampler-style

@@ -2,9 +2,11 @@
 
 from functools import partial
 
+import numpy as np
 import torch
 
-from electrocardio_panorama_tpu_torch.models.losses import l1, loss_wrapper, mse, mse_per_lead
+from electrocardio_panorama_tpu_torch.models.blocks import DROPOUT_RATE
+from electrocardio_panorama_tpu_torch.models.losses import bce, l1, loss_wrapper, mse, mse_per_lead
 from electrocardio_panorama_tpu_torch.models.nefnet import (
     NefNet,
     NefNetLatents,
@@ -23,7 +25,10 @@ from electrocardio_panorama_tpu_torch.models.nefnet2 import (
     init_nefnet2,
     nefnet2_apply,
 )
+from electrocardio_panorama_tpu_torch.models.resnet1d import init_resnet1d, mask_shapes, resnet1d_apply, resnet1d_plan
+from electrocardio_panorama_tpu_torch.ops import dropout_mask
 from electrocardio_panorama_tpu_torch.ops.kernels.encoder_fused import make_fused_encode_fn
+from electrocardio_panorama_tpu_torch.training.metrics import micro_f1
 
 __all__ = [
     "build_model",
@@ -33,6 +38,8 @@ __all__ = [
     "NefNetLatents",
     "NefNet2",
     "NefNet2Def",
+    "ResNet1dDef",
+    "ViewSynthesis",
     "init_nefnet2",
     "nefnet2_apply",
     "encode_latents2",
@@ -47,10 +54,54 @@ __all__ = [
     "l1",
     "mse",
     "mse_per_lead",
+    "bce",
 ]
 
 
-class NefNetDef:
+class ViewSynthesis:
+    """What the Solver asks of a Nef-Net-family definition besides its steps:
+    the loss vectors' widths (train, eval), the test metric that picks the
+    best epoch and its value before any epoch, an epoch's scalars and the
+    val summary (reference solver.py:105-116)."""
+
+    classifier = False
+    loss_widths = (4, 5)
+    score, score_floor = "psnr_gen", 0.0
+
+    @staticmethod
+    def check_knobs(cfg) -> None:
+        """Every knob of check_ported_knobs applies."""
+
+    @staticmethod
+    def epoch_scalars(trm, tem, te) -> tuple[dict, dict, str]:
+        """(scalars, the checkpoint's metric extras, the printed line) of an
+        epoch from the mean train and test loss vectors and the test epoch."""
+        met = te["metrics"].mean(axis=0) if te["metrics"] is not None else np.zeros(4)
+        psnr_gen, psnr_reg, ssim_gen, ssim_reg = (float(v) for v in met)
+        scalars = {
+            "train_loss_all": trm[0], "test_loss_all": tem[0],
+            "train_loss_1": trm[1], "test_loss_1": tem[1],
+            "train_loss_2": trm[2], "test_loss_2": tem[2],
+            "train_3": trm[3], "test_3": tem[3], "test_unsuperv": tem[4],
+            "psnr_gen": psnr_gen, "psnr_reg": psnr_reg, "ssim_gen": ssim_gen, "ssim_reg": ssim_reg,
+        }
+        if te["singlelead"] is not None:
+            sl = te["singlelead"].mean(axis=0)  # [gen_num, 2]
+            for i in range(sl.shape[0]):
+                scalars[f"psnr_reg_lead_{i}"] = sl[i, 0]
+                scalars[f"ssim_reg_lead_{i}"] = sl[i, 1]
+        line = f"psnr_gen: {psnr_gen}, psnr_reg: {psnr_reg}, ssim_gen:{ssim_gen}, ssim_reg:{ssim_reg}"
+        return scalars, {"psnr_gen": psnr_gen, "psnr_reg": psnr_reg}, line
+
+    @staticmethod
+    def val_summary(te) -> tuple[dict, str]:
+        """(val's result, its printed line) from a test epoch."""
+        met = te["metrics"].mean(axis=0)
+        return ({"psnr_gen": met[0], "psnr_reg": met[1], "ssim_gen": met[2], "ssim_reg": met[3]},
+                "psnr_gen:{}, psnr_reg:{}, ssim_gen:{}, ssim_reg:{}".format(*met))
+
+
+class NefNetDef(ViewSynthesis):
     """Bound model definition: init/apply/encode/decode over static config."""
 
     def __init__(self, lead_num: int, theta_encoder_len: int = 1, dtype=torch.float32):
@@ -73,7 +124,7 @@ class NefNetDef:
         return make_fused_encode_fn(self.lead_num, self.theta_encoder_len, plain=plain)
 
 
-class NefNet2Def:
+class NefNet2Def(ViewSynthesis):
     """Bound Nef-Net2 definition (the shared single-lead tower)."""
 
     # A2 computes Nef-Net's lead-grouped chain, not the shared tower and its
@@ -114,27 +165,100 @@ class NefNet2Def:
             "gen phase never produces); use model_nefnet for synthesis")
 
 
+class ResNet1dDef:
+    """Bound 1-D ResNet classifier (models/resnet1d.py; the reference's
+    resnet_1d.py): records [B, in_channel, T] -> multi-label sigmoid scores
+    [B, num_classes]. The layer plan is fixed here, at the reference's 64
+    stem channels unless a test narrows it; `init` returns (params, state) as
+    the Nef-Net definitions do. The Solver takes the classifier's steps for
+    it (`classifier`); its eval reads the BCE and the micro-averaged F1 at
+    0.5, and the best epoch is the one of the highest test F1."""
+
+    classifier = True
+    loss_widths = (1, 1)
+    # F1 reads 0 until a score passes 0.5, and the first epoch is still the best so far
+    score, score_floor = "f1", -float("inf")
+
+    def __init__(self, arch: str, in_channel: int, num_classes: int, lead_num: int = 1, dtype=torch.float32, *,
+                 init_channels: int = 64):
+        self.arch, self.in_channel, self.num_classes = arch, in_channel, num_classes
+        self.lead_num, self.init_channels, self.dtype = lead_num, init_channels, dtype
+        self.meta = resnet1d_plan(arch, lead_num=lead_num, init_channels=init_channels)
+
+    def init(self, generator: torch.Generator, device="cpu"):
+        params, state, _ = init_resnet1d(generator, self.arch, in_channel=self.in_channel,
+                                         num_classes=self.num_classes, lead_num=self.lead_num,
+                                         init_channels=self.init_channels, dtype=self.dtype, device=device)
+        return params, state
+
+    def apply(self, params, state, x, *, train: bool = False, masks=None):
+        """(scores [B, num_classes], BN state updates; empty at eval)."""
+        return resnet1d_apply(params, state, self.meta, x, train=train, masks=masks)
+
+    def draw_masks(self, gen: torch.Generator, batch: int, length: int, dtype=torch.float32) -> list:
+        """The step's pre-scaled dropout masks, one per block in block order
+        (resnet1d.mask_shapes), drawn from `gen` in that order."""
+        return [dropout_mask(shape, DROPOUT_RATE, gen, dtype=dtype)
+                for shape in mask_shapes(self.meta, batch, length)]
+
+    @staticmethod
+    def check_knobs(cfg) -> None:
+        """What the classifier's step does not take raises, naming why."""
+        for knob in ("train_encoder", "eval_encoder", "train_decoder"):
+            if cfg.TPU[knob] == "fused":
+                raise ValueError(
+                    f"TPU.{knob}='fused' does not apply to model_resnet1d: kernels A2/A3 and A4f/A4b compute "
+                    "Nef-Net's encoder and decoder; the classifier's Bottleneck tower runs eagerly (use 'xla')")
+        if list(cfg.TPU.mesh_shape):
+            raise NotImplementedError(
+                "TPU.mesh_shape under model_resnet1d: the data-parallel classifier is not ported yet "
+                "(ROADMAP.md Queue F); train it on one device (TPU.mesh_shape [])")
+        if cfg.TPU.compute_dtype != "float32":
+            raise NotImplementedError(
+                f"TPU.compute_dtype {cfg.TPU.compute_dtype!r} under model_resnet1d: only float32 is ported "
+                "(the bfloat16 classifier is open in ROADMAP.md Queue F)")
+
+    @staticmethod
+    def epoch_scalars(trm, tem, te) -> tuple[dict, dict, str]:
+        """The BCEs and the test split's micro-averaged F1 over the epoch's
+        summed [tp, fp, fn]."""
+        f1 = float(micro_f1(te["metrics"].sum(axis=0))) if te["metrics"] is not None else 0.0
+        return {"train_loss_all": trm[0], "test_loss_all": tem[0], "f1": f1}, {"f1": f1}, f"f1: {f1}"
+
+    @staticmethod
+    def val_summary(te) -> tuple[dict, str]:
+        out = {"loss": float(te["losses"].mean()), "f1": float(micro_f1(te["metrics"].sum(axis=0)))}
+        return out, "loss:{}, f1:{}".format(out["loss"], out["f1"])
+
+
 def build_model(cfg):
     """'model_nefnet' as the reference registers it (network/__init__.py:7-12);
     'model_nefnet2' as the JAX package registers it besides (the reference
-    defines Model_nefnet2 but never registers it)."""
+    defines Model_nefnet2 but never registers it); 'model_resnet1d', the
+    reference's 1-D ResNet classifier (network/encoder/resnet_1d.py, which
+    its registry never names), at MODEL.arch."""
     dtype = getattr(torch, cfg.TPU.param_dtype) if "TPU" in cfg else torch.float32
     if cfg.MODEL.model == "model_nefnet":
         return NefNetDef(cfg.DATA.lead_num, cfg.MODEL.theta_L, dtype)
     if cfg.MODEL.model == "model_nefnet2":
         return NefNet2Def(cfg.DATA.lead_num, cfg.MODEL.theta_L, dtype)
+    if cfg.MODEL.model == "model_resnet1d":
+        return ResNet1dDef(cfg.MODEL.arch, cfg.DATA.in_channel, cfg.MODEL.num_classes, cfg.DATA.lead_num, dtype)
     raise ValueError(
         "build model: model name error "
         f"(MODEL.model={cfg.MODEL.model!r}; registered: 'model_nefnet', "
-        "'model_nefnet2' — the default config ships with the reference's "
+        "'model_nefnet2', 'model_resnet1d' — the default config ships with the reference's "
         "unregistered 'modelv2', so set MODEL.model in your yml or overrides)"
     )
 
 
 def build_loss(cfg):
-    """Loss registry (reference network/__init__.py:15-24)."""
+    """Loss registry (reference network/__init__.py:15-24), plus 'bce', the
+    classifier's."""
     if cfg.MODEL.loss == "v1":
         return loss_wrapper
     if cfg.MODEL.loss == "mse":
         return lambda pred, target, *a, **k: mse(pred, target)
+    if cfg.MODEL.loss == "bce":
+        return bce
     raise ValueError("build loss: loss name error")

@@ -11,6 +11,7 @@ subgradient 0 at 0 that the JAX package rebuilds by hand (its `_abs_torch`).
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 
 def l1(a, b):
@@ -50,3 +51,11 @@ def loss_wrapper(predict, predict_shuffle_p, predict_shuffle_l, target, cfg, res
 def mse_per_lead(pred, target):
     """MSELead (losses.py:53-64): the mean of the per-lead MSEs."""
     return torch.mean(torch.mean(torch.square(pred - target), dim=(0, 2)))
+
+
+def bce(probs, labels):
+    """The classifier's loss (MODEL.loss 'bce'): the mean binary
+    cross-entropy of the sigmoid scores `probs` [B, C] against the multi-hot
+    `labels` [B, C]. The reference defines no loss for its classifier
+    (resnet_1d.py ends in a sigmoid); this one is assumed."""
+    return F.binary_cross_entropy(probs, labels.to(probs.dtype))

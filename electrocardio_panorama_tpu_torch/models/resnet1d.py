@@ -21,6 +21,11 @@ normal(0, sqrt(2/(k*k*C_out))), BN weight 1 and bias 0 (resnet_1d.py:114-120).
 `meta` is the JAX package's static layer plan: {"arch", "block", "plan":
 [[{"prefix", "stride", "downsample", "inplanes", "planes"}, ...] per layer],
 "lead_num", "out_features"}.
+
+The forward records the span ecgpan.resnet1d.forward (stem to head) with the
+children ecgpan.resnet1d.stem, .layer1 to .layer4 and .head, each with the
+input's device (utils/profiling.py: they record only under a profiler
+session or `recording()`).
 """
 
 from __future__ import annotations
@@ -30,6 +35,7 @@ import torch
 from electrocardio_panorama_tpu_torch.models import init as inits
 from electrocardio_panorama_tpu_torch.models.blocks import DROPOUT_RATE
 from electrocardio_panorama_tpu_torch.ops import batch_norm1d, conv1d, dropout, dropout_mask, linear, max_pool1d
+from electrocardio_panorama_tpu_torch.utils.profiling import span
 
 LAYER_SPECS = {
     "resnet18": ("basic", [2, 2, 2, 2]),
@@ -41,14 +47,33 @@ LAYER_SPECS = {
 _EXPANSION = {"basic": 1, "bottleneck": 4}
 
 
+def resnet1d_plan(arch: str = "resnet34", *, lead_num: int = 1, init_channels: int = 64) -> dict:
+    """The static layer plan (`meta`) of `arch`, without weights."""
+    block, layers = LAYER_SPECS[arch]
+    exp = _EXPANSION[block]
+    plan = []
+    inplanes = init_channels * lead_num
+    for li, (blocks, mult) in enumerate(zip(layers, (1, 2, 4, 8)), start=1):
+        planes = init_channels * mult * lead_num
+        layer_plan = []
+        for bi in range(blocks):
+            stride = 2 if li > 1 and bi == 0 else 1
+            downsample = bi == 0 and (stride != 1 or inplanes != planes * exp)
+            layer_plan.append({"prefix": f"layer{li}.{bi}", "stride": stride, "downsample": downsample,
+                               "inplanes": inplanes, "planes": planes})
+            inplanes = planes * exp
+        plan.append(layer_plan)
+    return {"arch": arch, "block": block, "plan": plan, "lead_num": lead_num, "out_features": inplanes}
+
+
 def init_resnet1d(generator: torch.Generator, arch: str = "resnet34", *, in_channel: int = 8,
                   num_classes: int = 55, lead_num: int = 1, init_channels: int = 64,
                   dtype=torch.float32, device="cpu"):
     """(params, state, meta): flat dicts under the reference's keys, drawn
     from `generator` (a CPU generator) and moved to `device`, and the layer
     plan."""
-    block, layers = LAYER_SPECS[arch]
-    exp = _EXPANSION[block]
+    meta = resnet1d_plan(arch, lead_num=lead_num, init_channels=init_channels)
+    block, exp = meta["block"], _EXPANSION[meta["block"]]
     params: dict = {}
     state: dict = {}
 
@@ -62,48 +87,48 @@ def init_resnet1d(generator: torch.Generator, arch: str = "resnet34", *, in_chan
         state[f"{prefix}.running_mean"], state[f"{prefix}.running_var"] = torch.zeros(ch), torch.ones(ch)
         state[f"{prefix}.num_batches_tracked"] = torch.zeros((), dtype=torch.int64)
 
-    stem_ch = init_channels * lead_num
-    conv_w("conv1.weight", stem_ch, in_channel // lead_num, 15)
-    plan = []
-    inplanes = stem_ch
-    for li, (blocks, mult) in enumerate(zip(layers, (1, 2, 4, 8)), start=1):
-        planes = init_channels * mult * lead_num
-        layer_plan = []
-        for bi in range(blocks):
-            prefix = f"layer{li}.{bi}"
-            stride = 2 if li > 1 and bi == 0 else 1
-            downsample = bi == 0 and (stride != 1 or inplanes != planes * exp)
-            if block == "basic":
-                conv_w(f"{prefix}.conv1.weight", planes, inplanes // lead_num, 7)
-                conv_w(f"{prefix}.conv2.weight", planes, planes // lead_num, 7)
-            else:
-                conv_w(f"{prefix}.conv1.weight", planes, inplanes, 7)
-                bn(f"{prefix}.bn1", planes)
-                conv_w(f"{prefix}.conv2.weight", planes, planes, 11)
-                bn(f"{prefix}.bn2", planes)
-                conv_w(f"{prefix}.conv3.weight", planes * 4, planes, 7)
-                bn(f"{prefix}.bn3", planes * 4)
-            if downsample:
-                conv_w(f"{prefix}.downsample.0.weight", planes * exp,
-                       inplanes // (lead_num if block == "basic" else 1), 1)
-                bn(f"{prefix}.downsample.1", planes * exp)
-            layer_plan.append({"prefix": prefix, "stride": stride, "downsample": downsample,
-                               "inplanes": inplanes, "planes": planes})
-            inplanes = planes * exp
-        plan.append(layer_plan)
+    conv_w("conv1.weight", init_channels * lead_num, in_channel // lead_num, 15)
+    for bp in (bp for layer_plan in meta["plan"] for bp in layer_plan):
+        prefix, inplanes, planes = bp["prefix"], bp["inplanes"], bp["planes"]
+        if block == "basic":
+            conv_w(f"{prefix}.conv1.weight", planes, inplanes // lead_num, 7)
+            conv_w(f"{prefix}.conv2.weight", planes, planes // lead_num, 7)
+        else:
+            conv_w(f"{prefix}.conv1.weight", planes, inplanes, 7)
+            bn(f"{prefix}.bn1", planes)
+            conv_w(f"{prefix}.conv2.weight", planes, planes, 11)
+            bn(f"{prefix}.bn2", planes)
+            conv_w(f"{prefix}.conv3.weight", planes * 4, planes, 7)
+            bn(f"{prefix}.bn3", planes * 4)
+        if bp["downsample"]:
+            conv_w(f"{prefix}.downsample.0.weight", planes * exp,
+                   inplanes // (lead_num if block == "basic" else 1), 1)
+            bn(f"{prefix}.downsample.1", planes * exp)
 
+    inplanes = meta["out_features"]
     params["fc.weight"], params["fc.bias"] = torch.empty(num_classes, inplanes), torch.empty(num_classes)
     inits.default_(params["fc.weight"], params["fc.bias"], inplanes, generator)
     params = {k: v.to(device=device, dtype=dtype) for k, v in params.items()}
     state = {k: v.to(device=device, dtype=dtype if v.is_floating_point() else v.dtype)
              for k, v in state.items()}
-    meta = {"arch": arch, "block": block, "plan": plan, "lead_num": lead_num, "out_features": inplanes}
     return params, state, meta
 
 
 def dropout_sites(meta) -> int:
     """One dropout site per block."""
     return sum(len(layer) for layer in meta["plan"])
+
+
+def mask_shapes(meta, batch: int, length: int) -> list[tuple[int, int, int]]:
+    """The shape of each block's dropout input, in block order, for `batch`
+    records of `length` samples: the block's planes at the length after its
+    strided conv (conv1 of a BasicBlock, conv2 of a Bottleneck)."""
+    n = ((length + 2 * 7 - 15) // 2 + 1 - 1) // 2 + 1  # the stem conv, then the maxpool
+    shapes = []
+    for bp in (bp for layer_plan in meta["plan"] for bp in layer_plan):
+        n = (n - 1) // bp["stride"] + 1
+        shapes.append((batch, bp["planes"], n))
+    return shapes
 
 
 def resnet1d_apply(params: dict, state: dict, meta: dict, x, *, train: bool = False, masks=None,
@@ -138,26 +163,33 @@ def resnet1d_apply(params: dict, state: dict, meta: dict, x, *, train: bool = Fa
         updates[f"{prefix}.num_batches_tracked"] = s[f"{prefix}.num_batches_tracked"] + 1
         return out
 
-    h = max_pool1d(torch.relu(conv1d(x, p["conv1.weight"], stride=2, padding=7, groups=g)))
-    for layer_plan in meta["plan"]:
-        for bp in layer_plan:
-            prefix, stride = bp["prefix"], bp["stride"]
-            if block == "basic":
-                out = torch.relu(conv1d(h, p[f"{prefix}.conv1.weight"], stride=stride, padding=3, groups=g))
-                out = conv1d(drop(out), p[f"{prefix}.conv2.weight"], padding=3, groups=g)
-            else:
-                out = torch.relu(bn(f"{prefix}.bn1", conv1d(h, p[f"{prefix}.conv1.weight"], padding=3)))
-                out = conv1d(out, p[f"{prefix}.conv2.weight"], stride=stride, padding=5)
-                out = drop(torch.relu(bn(f"{prefix}.bn2", out)))
-                out = bn(f"{prefix}.bn3", conv1d(out, p[f"{prefix}.conv3.weight"], padding=3))
-            residual = h
-            if bp["downsample"]:
-                residual = conv1d(h, p[f"{prefix}.downsample.0.weight"], stride=stride,
-                                  groups=g if block == "basic" else 1)
-                residual = bn(f"{prefix}.downsample.1", residual)
-            h = torch.relu(out + residual)
+    def block_apply(bp, h):
+        prefix, stride = bp["prefix"], bp["stride"]
+        if block == "basic":
+            out = torch.relu(conv1d(h, p[f"{prefix}.conv1.weight"], stride=stride, padding=3, groups=g))
+            out = conv1d(drop(out), p[f"{prefix}.conv2.weight"], padding=3, groups=g)
+        else:
+            out = torch.relu(bn(f"{prefix}.bn1", conv1d(h, p[f"{prefix}.conv1.weight"], padding=3)))
+            out = conv1d(out, p[f"{prefix}.conv2.weight"], stride=stride, padding=5)
+            out = drop(torch.relu(bn(f"{prefix}.bn2", out)))
+            out = bn(f"{prefix}.bn3", conv1d(out, p[f"{prefix}.conv3.weight"], padding=3))
+        residual = h
+        if bp["downsample"]:
+            residual = conv1d(h, p[f"{prefix}.downsample.0.weight"], stride=stride,
+                              groups=g if block == "basic" else 1)
+            residual = bn(f"{prefix}.downsample.1", residual)
+        return torch.relu(out + residual)
 
-    pooled = h.mean(dim=2)  # AdaptiveAvgPool1d(1)
-    if features_only:
-        return pooled, updates
-    return torch.sigmoid(linear(pooled, p["fc.weight"], p["fc.bias"])), updates
+    dev = x.device
+    with span("ecgpan.resnet1d.forward", device=dev):
+        with span("ecgpan.resnet1d.stem", device=dev):
+            h = max_pool1d(torch.relu(conv1d(x, p["conv1.weight"], stride=2, padding=7, groups=g)))
+        for li, layer_plan in enumerate(meta["plan"], start=1):
+            with span(f"ecgpan.resnet1d.layer{li}", device=dev):
+                for bp in layer_plan:
+                    h = block_apply(bp, h)
+        with span("ecgpan.resnet1d.head", device=dev):
+            pooled = h.mean(dim=2)  # AdaptiveAvgPool1d(1)
+            if features_only:
+                return pooled, updates
+            return torch.sigmoid(linear(pooled, p["fc.weight"], p["fc.bias"])), updates

@@ -9,6 +9,10 @@ borders cropped by (win-1)//2, sample covariance N/(N-1).
 
 `psnr_values` / `ssim_values` run on the tensors' device inside the eval
 step; the numpy `psnr`, `ssim_1d` and `ssim` are the float64 oracles.
+
+The classifier's eval (model_resnet1d) reads the micro-averaged F1 at a
+threshold of 0.5 (`multilabel_counts`, `micro_f1`). The reference defines
+no eval metric for its classifier; this one is assumed.
 """
 
 from __future__ import annotations
@@ -113,6 +117,24 @@ def ssim_values(pred: torch.Tensor, gt: torch.Tensor, rois: torch.Tensor) -> tor
 def ssim_masked(pred, gt, rois) -> torch.Tensor:
     """Scalar mean of ssim_values: the reference SSIM() contract."""
     return ssim_values(pred, gt, rois).mean()
+
+
+def multilabel_counts(probs: torch.Tensor, labels: torch.Tensor, threshold: float = 0.5) -> torch.Tensor:
+    """[tp, fp, fn] of multi-label scores `probs` [B, C] against the multi-hot
+    `labels` [B, C], a class predicted where its score reaches `threshold`,
+    summed over every record and class (float32, on the tensors' device)."""
+    pred = probs >= threshold
+    truth = labels > 0.5
+    return torch.stack([(pred & truth).sum(), (pred & ~truth).sum(), (~pred & truth).sum()]).float()
+
+
+def micro_f1(counts):
+    """Micro-averaged F1 from [tp, fp, fn] (`multilabel_counts`, a tensor or
+    an array, summed over any number of batches): 2 tp / (2 tp + fp + fn), 0
+    where all three are 0."""
+    tp, fp, fn = counts[0], counts[1], counts[2]
+    den = 2 * tp + fp + fn
+    return 2 * tp / (den + (den == 0))
 
 
 def compute_clf_metrics(pred_probs: np.ndarray, gt_labels: np.ndarray, target_label: int = -1) -> dict:

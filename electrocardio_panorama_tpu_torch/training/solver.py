@@ -23,7 +23,17 @@ the caller names it.
     global batch with its rows of the full-batch masks, the eager decoder's
     BatchNorm moments cover the global batch, gradients, loss components and
     eval metrics are averaged over the ranks, and rank 0 alone takes the run
-    lock, writes scalars and checkpoints and paints.
+    lock, writes scalars and checkpoints and paints;
+  * for a classifier definition (MODEL.model 'model_resnet1d', the
+    reference's 1-D ResNet), decided once in __init__, the steps are the
+    classifier's: records `data` [B, in_channel, T] and multi-hot `label`
+    [B, C] through the same phases and spans, one dropout mask per block
+    from the step's generator, the loss vector [1] (BCE); eval gives the BCE
+    and [tp, fp, fn] at 0.5 (training/metrics.py). No A1-A4 function is
+    built for it; the knobs it does not take raise (its `check_knobs`).
+    What differs between the models in the epoch loop, restore and val (the
+    loss widths, the epoch's scalars, the best-epoch score) is the bound
+    definition's (models/__init__.py).
 
 Checkpoint cadence and best-model selection mirror the reference: every epoch
 saved as epoch_{n}.pkl, best tracked by test psnr_gen into best_valid.pkl,
@@ -67,6 +77,7 @@ from electrocardio_panorama_tpu_torch.utils.profiling import span
 
 _TRAIN_KEYS = ("data", "input_theta", "target_theta", "rois", "target_view", "noise")
 _EVAL_KEYS = ("data", "input_theta", "target_theta", "rois", "rest_theta", "target_view", "rest_view")
+_CLASSIFY_KEYS = ("data", "label")
 
 
 def _waited(dl):
@@ -138,6 +149,7 @@ class Solver:
         self.output_dir = os.path.join(cfg.output_dir, cfg.desc)
         os.makedirs(self.output_dir, exist_ok=True)
         self.model = build_model(cfg)
+        self.model.check_knobs(cfg)
         self.loss = build_loss(cfg)
         self.compute_dtype = getattr(torch, cfg.TPU.compute_dtype)
         if self.compute_dtype not in (torch.float32, torch.bfloat16):
@@ -153,19 +165,24 @@ class Solver:
         self.rank0 = process_index() == 0
         self.writer = ScalarWriter(os.path.join(cfg.output_dir, "tf_logs")
                                    if use_writer and self.desc != "debug" and self.rank0 else None)
-        self.train_encoder = self._train_encoder_mode()
-        self._train_enc_fn = (make_fused_encode_fn(cfg.DATA.lead_num, cfg.MODEL.theta_L,
-                                                   ckpt=cfg.TPU.encoder_ckpt)
-                              if self.train_encoder == "fused" else None)
-        # TPU.train_decoder 'fused': the grouped decodes through A4f/A4b, in
-        # the compute dtype (on a CPU tensor the pair's plain version)
-        self.train_decoder = cfg.TPU.train_decoder
-        # the eager decode under a mesh of several ranks: BatchNorm over the
-        # global batch; A4f normalizes each rank's sub-batch with its own moments
-        self._train_dec_fn = (make_train_decode_fn(self.compute_dtype) if self.train_decoder == "fused"
-                              else synced_train_decode_fn(BatchStatSync()) if self.world > 1 else None)
-        self.eval_decoder = self._eval_decoder_mode()
-        self._eval_enc_fn = self._eval_encode_fn()
+        if self.model.classifier:  # no fused function: the step and the eval are the classifier's
+            self.train_encoder = self.train_decoder = self.eval_decoder = "xla"
+            self._train_enc_fn = self._train_dec_fn = self._eval_enc_fn = None
+            self.train_step, self.eval_step = self._classify_train_step, self._classify_eval_step
+        else:
+            self.train_encoder = self._train_encoder_mode()
+            self._train_enc_fn = (make_fused_encode_fn(cfg.DATA.lead_num, cfg.MODEL.theta_L,
+                                                       ckpt=cfg.TPU.encoder_ckpt)
+                                  if self.train_encoder == "fused" else None)
+            # TPU.train_decoder 'fused': the grouped decodes through A4f/A4b, in
+            # the compute dtype (on a CPU tensor the pair's plain version)
+            self.train_decoder = cfg.TPU.train_decoder
+            # the eager decode under a mesh of several ranks: BatchNorm over the
+            # global batch; A4f normalizes each rank's sub-batch with its own moments
+            self._train_dec_fn = (make_train_decode_fn(self.compute_dtype) if self.train_decoder == "fused"
+                                  else synced_train_decode_fn(BatchStatSync()) if self.world > 1 else None)
+            self.eval_decoder = self._eval_decoder_mode()
+            self._eval_enc_fn = self._eval_encode_fn()
         # per epoch: train losses [steps, 4], host-clock times, scalars
         self.history: dict[int, dict] = {}
 
@@ -336,6 +353,43 @@ class Solver:
             all_reduce_mean_([losses, metrics, single])
         return out, rest_out, losses, metrics, single
 
+    def _classify_train_step(self, params: dict, bn_state: dict, opt, *, epoch: int, step: int, i1: int = 0,
+                             i2: int = 0, batch: dict):
+        """The classifier's step (`train_step` under model_resnet1d; the
+        standin indices are unused): records and labels to the device, the
+        blocks' dropout masks from the step's generator, forward, BCE,
+        backward and the update, in the phases and spans of Nef-Net's step.
+        Returns (new bn_state, loss vector [1] on the device)."""
+        with span("ecgpan.train_step"):
+            with span("ecgpan.train_step.inputs"):
+                data, label = self._tensors(batch, _CLASSIFY_KEYS)
+                gen = torch.Generator(device=self.device).manual_seed(step_seed(self.cfg.seed, epoch, step))
+                masks = self.model.draw_masks(gen, data.shape[0], data.shape[-1])
+                opt.zero_grad(set_to_none=True)
+            with self._precision():
+                with span("ecgpan.train_step.forward"):
+                    probs, new_bn = self.model.apply(params, bn_state, data, train=True, masks=masks)
+                    loss = self.loss(probs, label)
+                with span("ecgpan.train_step.backward"):
+                    loss.backward()
+            with span("ecgpan.train_step.update"):
+                opt.step()
+                new_bn = {k: v.detach() for k, v in new_bn.items()}
+                lvec = loss.detach().float()[None]
+        return new_bn, lvec
+
+    @torch.no_grad()
+    def _classify_eval_step(self, params: dict, bn_state: dict, batch: dict):
+        """The classifier's eval (`eval_step` under model_resnet1d), in
+        Nef-Net's form: (scores [B, C], no rest views, losses [1] = BCE,
+        metrics [3] = tp, fp, fn at a threshold of 0.5 for the epoch's
+        micro-averaged F1, no per-lead metrics)."""
+        data, label = self._tensors(batch, _CLASSIFY_KEYS)
+        with full_f32():
+            probs, _ = self.model.apply(params, bn_state, data)
+            losses = self.loss(probs, label).float()[None]
+        return probs, None, losses, M.multilabel_counts(probs, label), None
+
     # ------------------------------------------------------------ epoch loop
     def run_one_epoch(self, dl, phase: str, *, epoch: int, params, bn_state, opt=None):
         cfg = self.cfg
@@ -356,11 +410,12 @@ class Solver:
                 # device-to-host sync per step
                 losses.append(lvec)
             else:
-                _, rest_out, lvec, met4, single = self.eval_step(params, bn_state, batch)
-                n_views += rest_out.shape[0] * rest_out.shape[1] * self.world
+                _, rest_out, lvec, met, single = self.eval_step(params, bn_state, batch)
+                if rest_out is not None:  # a classifier renders no views
+                    n_views += rest_out.shape[0] * rest_out.shape[1] * self.world
                 losses.append(lvec)
-                metrics_all.append(met4)
-                if single.shape[0]:
+                metrics_all.append(met)
+                if single is not None and single.shape[0]:
                     singlelead.append(single)
 
         if not losses:
@@ -422,13 +477,13 @@ class Solver:
                 lock.close()  # closing the fd releases the flock
 
     def restore(self):
-        """(params, bn_state, optimizer, start epoch, best psnr_gen): a fresh
+        """(params, bn_state, optimizer, start epoch, best score): a fresh
         init, or the checkpoint MODEL.resume names (which must exist), or the
         run directory's last one, whichever package wrote it."""
         params, bn_state, opt = self.init_state()
         loaded = CheckPointer(self.output_dir).load(self.cfg.MODEL.resume or None)
         if loaded is None:
-            return params, bn_state, opt, 0, 0.0
+            return params, bn_state, opt, 0, self.model.score_floor
         lp, ls, opt_loaded, extras = loaded
         with torch.no_grad():
             for k, v in params.items():
@@ -437,17 +492,19 @@ class Solver:
         if opt_loaded is not None:
             load_state_by_key(opt, params, opt_loaded)
         start_epoch = int(extras["epoch"]) + 1 if "epoch" in extras else 0
-        best_psnr_gen = float(extras.get("best_test_psnr_gen", 0.0))
-        print(f"resumed from epoch {start_epoch}, best_test_psnr_gen {best_psnr_gen:.6f}")
-        return params, bn_state, opt, start_epoch, best_psnr_gen
+        score = self.model.score
+        best = float(extras.get(f"best_test_{score}", 0.0))
+        print(f"resumed from epoch {start_epoch}, best_test_{score} {best:.6f}")
+        return params, bn_state, opt, start_epoch, best
 
     def _train_locked(self, dl_train, dl_test):
         cfg = self.cfg
-        params, bn_state, opt, start_epoch, best_psnr_gen = self.restore()
+        params, bn_state, opt, start_epoch, best = self.restore()
         ckpt = CheckPointer(self.output_dir)
         # scalars.jsonl stays one clean run: drop rows from the first epoch
         # this process writes on
         self.writer.prune_from(start_epoch)
+        score, widths = self.model.score, self.model.loss_widths
 
         profile_dir = cfg.TPU.profile_dir
         for epoch in range(start_epoch, cfg.SOLVER.epochs):
@@ -469,36 +526,22 @@ class Solver:
             te = self.run_one_epoch(dl_test, "test", epoch=epoch, params=params, bn_state=bn_state)
             t2 = time.perf_counter()
 
-            trm = tr["losses"].mean(axis=0) if len(tr["losses"]) else np.zeros(4)
-            tem = te["losses"].mean(axis=0) if len(te["losses"]) else np.zeros(5)
-            met = te["metrics"].mean(axis=0) if te["metrics"] is not None else np.zeros(4)
-            psnr_gen, psnr_reg, ssim_gen, ssim_reg = (float(v) for v in met)
-            scalars = {
-                "train_loss_all": trm[0], "test_loss_all": tem[0],
-                "train_loss_1": trm[1], "test_loss_1": tem[1],
-                "train_loss_2": trm[2], "test_loss_2": tem[2],
-                "train_3": trm[3], "test_3": tem[3], "test_unsuperv": tem[4],
-                "psnr_gen": psnr_gen, "psnr_reg": psnr_reg, "ssim_gen": ssim_gen, "ssim_reg": ssim_reg,
-            }
-            if te["singlelead"] is not None:
-                sl = te["singlelead"].mean(axis=0)  # [gen_num, 2]
-                for i in range(sl.shape[0]):
-                    scalars[f"psnr_reg_lead_{i}"] = sl[i, 0]
-                    scalars[f"ssim_reg_lead_{i}"] = sl[i, 1]
+            trm = tr["losses"].mean(axis=0) if len(tr["losses"]) else np.zeros(widths[0])
+            tem = te["losses"].mean(axis=0) if len(te["losses"]) else np.zeros(widths[1])
+            scalars, record, line = self.model.epoch_scalars(trm, tem, te)
             self.history[epoch] = {"train_losses": tr["losses"], "train_s": t1 - t0, "train_steps": tr["steps"],
                                    "eval_s": t2 - t1, "eval_views": te["views"], "scalars": scalars}
             if self.desc != "debug":
                 self.writer.write(scalars, epoch)
             print(f"Epoch {epoch}: train_loss: {trm[0]:.6f}, test_loss: {tem[0]:.6f} ({t2 - t0:.1f}s)")
-            print(f"psnr_gen: {psnr_gen}, psnr_reg: {psnr_reg}, ssim_gen:{ssim_gen}, ssim_reg:{ssim_reg}")
+            print(line)
 
-            # best_test_psnr_gen rides in every epoch checkpoint, so a resume
+            # best_test_<score> rides in every epoch checkpoint, so a resume
             # from a non-best epoch keeps the best tracking (solver.py:105-116)
-            is_best = psnr_gen > best_psnr_gen
+            is_best = record[score] > best
             if is_best:
-                best_psnr_gen = psnr_gen
-            extras = {"psnr_gen": psnr_gen, "psnr_reg": psnr_reg, "epoch": epoch,
-                      "best_test_psnr_gen": best_psnr_gen}
+                best = record[score]
+            extras = {**record, "epoch": epoch, f"best_test_{score}": best}
             if self.rank0:  # the replicas hold one model
                 opt_saved = state_by_key(opt, params)
                 ckpt.save(f"epoch_{epoch}", params=params, bn_state=bn_state, opt_state=opt_saved, **extras)
@@ -548,16 +591,17 @@ class Solver:
         if loaded is None:
             raise FileNotFoundError(f"no checkpoint found under {self.output_dir}")
         params, bn_state, _, extras = loaded
-        print("the latest best_test_psnr_gen is {:06f} of epoch {}".format(
-            float(extras.get("best_test_psnr_gen", 0.0)), extras.get("epoch", 0)))
+        score = self.model.score
+        print("the latest best_test_{} is {:06f} of epoch {}".format(
+            score, float(extras.get(f"best_test_{score}", 0.0)), extras.get("epoch", 0)))
         params = {k: v.to(self.device) for k, v in params.items()}
         bn_state = {k: v.to(self.device) for k, v in bn_state.items()}
         te = self.run_one_epoch(dl_test, "test", epoch=0, params=params, bn_state=bn_state)
         if te["metrics"] is None:
             raise RuntimeError("the test split produced no batch (DATA.batch_size, drop_last)")
-        met = te["metrics"].mean(axis=0)
-        print("psnr_gen:{}, psnr_reg:{}, ssim_gen:{}, ssim_reg:{}".format(*met))
-        return {"psnr_gen": met[0], "psnr_reg": met[1], "ssim_gen": met[2], "ssim_reg": met[3]}
+        out, line = self.model.val_summary(te)
+        print(line)
+        return out
 
     # ----------------------------------------------------------------- paint
     def paint(self, target, pred, input_data=None, epoch=None, flag="train"):

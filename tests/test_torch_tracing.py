@@ -140,6 +140,37 @@ def test_train_step_records_its_four_phases(base_cfg, batch, model, tmp_path):
         assert by[f"{STEP}.{p}"]["self_ms"] == by[f"{STEP}.{p}"]["host_ms"]
 
 
+def test_classifier_step_records_the_resnet_spans(tmp_path, monkeypatch):
+    """A model_resnet1d step records ecgpan.resnet1d.forward and its six
+    children (stem, layer1-4, head), in order, inside
+    ecgpan.train_step.forward; on the CPU without device time, at 4 stem
+    channels."""
+    from electrocardio_panorama_tpu_torch.models import ResNet1dDef
+
+    monkeypatch.setattr(S, "build_model", lambda cfg: ResNet1dDef("resnet50", 8, 5, init_channels=4))
+    cfg = get_cfg()
+    cfg.MODEL.model, cfg.MODEL.arch, cfg.MODEL.loss = "model_resnet1d", "resnet50", "bce"
+    cfg.MODEL.num_classes = 5
+    cfg.output_dir, cfg.desc = str(tmp_path), "tracing"
+    rng = np.random.default_rng(0)
+    batch = {"data": rng.standard_normal((2, 8, 600)).astype(np.float32),
+             "label": (rng.random((2, 5)) < 0.3).astype(np.int64)}
+    with profiling.recording():
+        one_step(cfg, batch)
+    spans = {s["name"]: s for s in profiling.snapshot()["spans"]}
+    fwd, net = spans[f"{STEP}.forward"], spans["ecgpan.resnet1d.forward"]
+    assert net["parent"] == fwd["id"] and inside(net, fwd)
+    kids = [spans[f"ecgpan.resnet1d.{k}"] for k in ("stem", "layer1", "layer2", "layer3", "layer4", "head")]
+    for k in kids:
+        assert k["parent"] == net["id"] and k["root"] == spans[STEP]["id"] and inside(k, net)
+        assert k["device_ms"] is None
+    for a, b in zip(kids, kids[1:]):
+        assert a["end_ns"] <= b["start_ns"]
+    assert sorted(spans) == sorted([STEP] + [f"{STEP}.{p}" for p in PHASES] + ["ecgpan.resnet1d.forward"]
+                                   + [f"ecgpan.resnet1d.{k}" for k in ("stem", "layer1", "layer2", "layer3",
+                                                                        "layer4", "head")])
+
+
 def test_render_records_encode_and_basis_planes(base_cfg, batch, tmp_path):
     cfg = model_cfg(base_cfg, "model_nefnet", tmp_path)
     params, bn, _ = S.Solver(cfg, use_writer=False, device="cpu").init_state()
