@@ -87,22 +87,25 @@ def double_conv(in_ch: int, out_ch: int) -> nn.ModuleDict:
 
 # ----------------------------------------------------------------- apply
 # `mask` is the block's pre-scaled dropout mask (ops.dropout_mask), shaped
-# like the conv1 output; None, or train=False, is the eval block.
-def resnet_block_apply(p: dict, prefix: str, x, *, groups: int, mask=None, train: bool = False):
-    out = torch.relu(conv1d(x, p[f"{prefix}.conv1.weight"], padding=3, groups=groups))
+# like the conv1 output; None, or train=False, is the eval block. `conv` is
+# the block's convolution primitive (ops.conv1d or ops.conv1d_measured).
+def resnet_block_apply(p: dict, prefix: str, x, *, groups: int, mask=None, train: bool = False,
+                       conv=conv1d):
+    out = torch.relu(conv(x, p[f"{prefix}.conv1.weight"], padding=3, groups=groups))
     out = dropout(out, DROPOUT_RATE, mask, train)
-    out = conv1d(out, p[f"{prefix}.conv2.weight"], padding=3, groups=groups)
+    out = conv(out, p[f"{prefix}.conv2.weight"], padding=3, groups=groups)
     return torch.relu(out + x)
 
 
-def model_block_apply(p: dict, prefix: str, x, *, groups: int, mask=None, train: bool = False):
-    out = torch.relu(conv1d(x, p[f"{prefix}.conv1.weight"], padding=1, groups=groups))
+def model_block_apply(p: dict, prefix: str, x, *, groups: int, mask=None, train: bool = False,
+                      conv=conv1d):
+    out = torch.relu(conv(x, p[f"{prefix}.conv1.weight"], padding=1, groups=groups))
     out = dropout(out, DROPOUT_RATE, mask, train)
-    out = conv1d(out, p[f"{prefix}.conv2.weight"], padding=1, groups=groups)
+    out = conv(out, p[f"{prefix}.conv2.weight"], padding=1, groups=groups)
     residual = x
     if out.shape[1] != x.shape[1]:
-        residual = conv1d(x, p[f"{prefix}.residual_conv.weight"],
-                          p[f"{prefix}.residual_conv.bias"], groups=groups)
+        residual = conv(x, p[f"{prefix}.residual_conv.weight"], p[f"{prefix}.residual_conv.bias"],
+                        groups=groups)
     return torch.relu(out + residual)
 
 

@@ -30,12 +30,14 @@ def encoder(lead_num: int, init_channels: int = 128) -> nn.ModuleDict:
     })
 
 
-def encoder_apply(p: dict, prefix: str, x, *, lead_num: int, masks=None, train: bool = False):
+def encoder_apply(p: dict, prefix: str, x, *, lead_num: int, masks=None, train: bool = False,
+                  conv=conv1d):
     """x [B, lead_num, 512] -> [B, 128*lead_num, 128]. In train mode `masks`
-    holds the three layer1 blocks' dropout masks, each [B, 128*lead_num, 128]."""
-    h = torch.relu(conv1d(x, p[f"{prefix}.conv1.weight"], stride=2, padding=7, groups=lead_num))
+    holds the three layer1 blocks' dropout masks, each [B, 128*lead_num, 128].
+    `conv` is every convolution's primitive (blocks.py)."""
+    h = torch.relu(conv(x, p[f"{prefix}.conv1.weight"], stride=2, padding=7, groups=lead_num))
     h = max_pool1d(h, kernel=3, stride=2, padding=1)
     for i in range(NUM_LAYER1_BLOCKS):
         h = resnet_block_apply(p, f"{prefix}.layer1.{i}", h, groups=lead_num,
-                               mask=masks[i] if train else None, train=train)
+                               mask=masks[i] if train else None, train=train, conv=conv)
     return h

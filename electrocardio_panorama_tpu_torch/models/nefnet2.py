@@ -43,7 +43,7 @@ from electrocardio_panorama_tpu_torch.models.nefnet import (
 )
 from electrocardio_panorama_tpu_torch.ops import (
     angular_encode,
-    conv1d,
+    conv1d_measured,
     conv_transpose1d_k2s2,
     dropout_mask,
     linear,
@@ -102,31 +102,40 @@ def encode_latents2(p: dict, x, input_thetas, rois, *, lead_num: int, theta_enco
                     masks=None, train: bool = False):
     """x [B, L, 512], input_thetas [B, L, 2], rois [B, 7, 2] -> per-lead z1,
     z2 [B, L, 128, 128] through the shared tower. In train mode `masks` are
-    `draw_masks`'s; without them the dropout sites pass through."""
+    `draw_masks`'s; without them the dropout sites pass through.
+
+    Every convolution of the chain but the ConvTranspose runs through
+    `conv1d_measured`: over the folded rows (T = 128, 128 channels, f32
+    with TF32 off) cuDNN's heuristic picks FFT convolutions, many times
+    slower than the direct engines its measurement finds."""
     B, L = x.shape[0], lead_num
     m6, mc20, mc22 = masks if (train and masks is not None) else ([None] * 6, None, None)
     train = train and masks is not None
 
     w = encoder_apply(p, "W_encoder", x.reshape(B * L, 1, SEQ_LEN), lead_num=1, masks=m6[:3],
-                      train=train)  # [B*L, 128, 128]
+                      train=train, conv=conv1d_measured)  # [B*L, 128, 128]
     gate1 = linear(angular_encode(input_thetas, theta_encoder_len), p["mlp1.weight"], p["mlp1.bias"])
     w = w * gate1.reshape(B * L, 128)[:, :, None]
-    w = model_block_apply(p, "w_conv.0", w, groups=1, mask=m6[3], train=train)
+    w = model_block_apply(p, "w_conv.0", w, groups=1, mask=m6[3], train=train, conv=conv1d_measured)
 
-    z1 = model_block_apply(p, "z1_conv.0", w[:, :64], groups=1, mask=m6[4], train=train)
-    z1 = conv1d(z1, p["single_conv_z1.0.weight"], p["single_conv_z1.0.bias"], padding=1)
-    z2 = model_block_apply(p, "z2_conv1.0", w[:, 64:], groups=1, mask=m6[5], train=train)
+    z1 = model_block_apply(p, "z1_conv.0", w[:, :64], groups=1, mask=m6[4], train=train,
+                           conv=conv1d_measured)
+    z1 = conv1d_measured(z1, p["single_conv_z1.0.weight"], p["single_conv_z1.0.bias"], padding=1)
+    z2 = model_block_apply(p, "z2_conv1.0", w[:, 64:], groups=1, mask=m6[5], train=train,
+                           conv=conv1d_measured)
 
     rois_f = rois.repeat_interleave(L, dim=0)  # every lead of a beat shares its rois
     a = roi_align_1d(z2, rois_f, size=ALIGN_SIZE, spatial_scale=SPATIAL_SCALE)
     a = a.reshape(B * L, 128 * ROI_SEGMENTS, ALIGN_SIZE)
-    a = model_block_apply(p, "z2_conv2.0", a, groups=ROI_SEGMENTS, mask=mc20, train=train)
+    a = model_block_apply(p, "z2_conv2.0", a, groups=ROI_SEGMENTS, mask=mc20, train=train,
+                          conv=conv1d_measured)
     a = conv_transpose1d_k2s2(a, p["z2_conv2.1.weight"], p["z2_conv2.1.bias"], groups=ROI_SEGMENTS)
-    a = model_block_apply(p, "z2_conv2.2", a, groups=ROI_SEGMENTS, mask=mc22, train=train)
+    a = model_block_apply(p, "z2_conv2.2", a, groups=ROI_SEGMENTS, mask=mc22, train=train,
+                          conv=conv1d_measured)
     z2_grid = a.reshape(B * L, 128, ROI_SEGMENTS, 2 * ALIGN_SIZE)
 
     z2 = roi_reverse_1d(z2_grid, rois_f, spatial_scale=SPATIAL_SCALE, out_len=FEAT_LEN)
-    z2 = conv1d(z2, p["single_conv_z2.0.weight"], p["single_conv_z2.0.bias"], padding=1)
+    z2 = conv1d_measured(z2, p["single_conv_z2.0.weight"], p["single_conv_z2.0.bias"], padding=1)
     return z1.reshape(B, L, 128, FEAT_LEN), z2.reshape(B, L, 128, FEAT_LEN)
 
 

@@ -1,8 +1,10 @@
 """Compute ops of the port: convs, resampling, ROI ops, angular encoding."""
 
 from electrocardio_panorama_tpu_torch.ops.convs import (
+    MEASURED,
     batch_norm1d,
     conv1d,
+    conv1d_measured,
     conv_transpose1d_k2s2,
     dropout,
     dropout_mask,
@@ -19,6 +21,8 @@ __all__ = [
     "angular_encode",
     "theta_feature_dim",
     "conv1d",
+    "conv1d_measured",
+    "MEASURED",
     "conv_transpose1d_k2s2",
     "max_pool1d",
     "linear",

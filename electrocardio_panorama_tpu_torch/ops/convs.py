@@ -12,6 +12,7 @@ which pins TF32 off for the op and restores the process-wide flags after.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import math
 
@@ -42,6 +43,95 @@ def conv1d(x, weight, bias=None, *, stride: int = 1, padding: int = 0, groups: i
     """x [B, C_in, L], weight [C_out, C_in/groups, K]."""
     with precise(x):
         return F.conv1d(x, weight, bias, stride=stride, padding=padding, groups=groups)
+
+
+# calls through conv1d_measured ("fwd", "bwd"), and the distinct CUDA keys
+# cuDNN measured once each ("shapes": pass, shapes, stride, padding, groups,
+# dtype, device; the passes are fwd, dgrad and wgrad, cuDNN's three searches)
+MEASURED: collections.Counter = collections.Counter()
+_MEASURED_KEYS: set = set()
+
+# The most memory the process may add while cuDNN measures a new key. Its
+# find sizes one trial workspace to the largest candidate plan's, GiBs for
+# the FFT plans at Nef-Net2's shapes, bounded only by the device's free
+# memory; when that allocation fails it halves it and drops the plans that
+# need more. The cap keeps the trials from raising the peak memory.
+FIND_HEADROOM_BYTES = 1 << 30
+
+
+@contextlib.contextmanager
+def _find_headroom(device: torch.device):
+    """The per-process memory fraction held at what the process has reserved
+    plus FIND_HEADROOM_BYTES inside the block, restored on exit."""
+    saved = torch.cuda.get_per_process_memory_fraction(device)
+    total = torch.cuda.get_device_properties(device).total_memory
+    cap = (torch.cuda.memory_reserved(device) + FIND_HEADROOM_BYTES) / total
+    torch.cuda.set_per_process_memory_fraction(min(cap, saved), device)
+    try:
+        yield
+    finally:
+        torch.cuda.set_per_process_memory_fraction(saved, device)
+
+
+@contextlib.contextmanager
+def _measured(x: torch.Tensor, new_key: bool):
+    """cuDNN's find mode (`cudnn.benchmark`) inside the block, TF32 off as
+    `precise(x)` holds it, and for a key cuDNN has not measured yet the
+    memory its trials may take capped (`_find_headroom`); all restored on
+    exit."""
+    saved = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.benchmark = True
+    try:
+        with precise(x), (_find_headroom(x.device) if new_key else contextlib.nullcontext()):
+            yield
+    finally:
+        torch.backends.cudnn.benchmark = saved
+
+
+def _first_sight(passes, x, weight, stride, padding, groups) -> bool:
+    """Records the CUDA keys of `passes`; True if any is new."""
+    new = False
+    if x.is_cuda:
+        for pass_ in passes:
+            key = (pass_, tuple(x.shape), tuple(weight.shape), stride, padding, groups, x.dtype, x.device)
+            if key not in _MEASURED_KEYS:
+                _MEASURED_KEYS.add(key)
+                MEASURED["shapes"] += 1
+                new = True
+    return new
+
+
+class _MeasuredConv1d(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, weight, bias, stride, padding, groups):
+        ctx.save_for_backward(x, weight)
+        ctx.conv = (stride, padding, groups, bias is not None)
+        MEASURED["fwd"] += 1
+        with _measured(x, _first_sight(["fwd"], x, weight, stride, padding, groups)):
+            return F.conv1d(x, weight, bias, stride=stride, padding=padding, groups=groups)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, grad):
+        x, weight = ctx.saved_tensors
+        stride, padding, groups, has_bias = ctx.conv
+        mask = [ctx.needs_input_grad[0], ctx.needs_input_grad[1], has_bias and ctx.needs_input_grad[2]]
+        MEASURED["bwd"] += 1
+        passes = [p for p, needed in (("dgrad", mask[0]), ("wgrad", mask[1])) if needed]
+        with _measured(x, _first_sight(passes, x, weight, stride, padding, groups)):
+            gx, gw, gb = torch.ops.aten.convolution_backward(
+                grad, x, weight, [weight.shape[0]] if has_bias else None, [stride], [padding], [1], False,
+                [0], groups, mask)
+        return gx, gw, gb, None, None, None
+
+
+def conv1d_measured(x, weight, bias=None, *, stride: int = 1, padding: int = 0, groups: int = 1):
+    """`conv1d` with cuDNN's algorithm chosen by measurement, once per shape,
+    for the forward and both gradients (`cudnn.benchmark` set around each),
+    where `conv1d` takes the heuristic's choice: for short 128-channel f32
+    convolutions with TF32 off that is an FFT path many times slower than a
+    direct engine. The same result on the CPU, bit for bit."""
+    return _MeasuredConv1d.apply(x, weight, bias, stride, padding, groups)
 
 
 def conv_transpose1d_k2s2(x, weight, bias=None, *, groups: int = 1):

@@ -43,7 +43,9 @@ from electrocardio_panorama_tpu.training.solver import Solver as JaxSolver
 from electrocardio_panorama_tpu_torch.config import get_cfg
 from electrocardio_panorama_tpu_torch.convert import params_from_jax
 from electrocardio_panorama_tpu_torch.data import BeatLoader, build_dataset
-from electrocardio_panorama_tpu_torch.models import NefNet2, NefNet2Def, decoder_apply
+from electrocardio_panorama_tpu_torch.models import NefNet2, NefNet2Def, ResNet1dDef, decoder_apply
+from electrocardio_panorama_tpu_torch.models import nefnet2 as N2
+from electrocardio_panorama_tpu_torch.ops import MEASURED, conv1d
 from electrocardio_panorama_tpu_torch.ops.kernels import decoder_train as dt
 from electrocardio_panorama_tpu_torch.ops.kernels import encoder_fused as ef
 from electrocardio_panorama_tpu_torch.training import solver as S
@@ -300,6 +302,77 @@ def test_nefnet2_solver_steps_and_eval_match_jax_solver(tmp_path, monkeypatch):
             np.testing.assert_allclose(v.numpy(), np.asarray(jtr["bn_state"][k]), rtol=1e-4, atol=1e-5, err_msg=k)
     np.testing.assert_allclose(te["losses"], jte["losses"], rtol=1e-4, atol=1e-6)
     np.testing.assert_allclose(te["metrics"], jte["metrics"], rtol=1e-4, atol=1e-5)
+
+
+# encode_latents2's convolutions, counted from the code: conv1 and the
+# tower's three BasicBlocks (1 + 3 x 2); w_conv (2: 128 -> 128 skips the
+# residual conv); z1_conv and z2_conv1 (3 each: 64 -> 128 takes it);
+# single_conv_z1; z2_conv2.0 (2: 896 -> 896); z2_conv2.2 (3: 448 -> 896);
+# single_conv_z2. The ConvTranspose stays on the heuristic.
+ENCODE_CONVS = 1 + 3 * 2 + 2 + 3 + 3 + 1 + 2 + 3 + 1
+
+
+def one_train_step(solver, p0, s0, batch, **shuffle):
+    """(loss vector, gradients, parameters after, BN state, MEASURED) of one
+    Solver.train_step from copies of (p0, s0)."""
+    p = {k: v.clone().requires_grad_(True) for k, v in p0.items()}
+    opt = get_optimizer(solver.cfg, p)
+    MEASURED.clear()
+    s, lvec = solver.train_step(p, {k: v.clone() for k, v in s0.items()}, opt, epoch=0, step=0, batch=batch,
+                                **shuffle)
+    return lvec, {k: v.grad for k, v in p.items()}, {k: v.detach() for k, v in p.items()}, s, dict(MEASURED)
+
+
+def test_nefnet2_step_through_measured_convs_is_the_conv1d_step_bitwise(tmp_path, monkeypatch):
+    """One Solver step of the cell's form (eager encoder, the fused decoder
+    pair's plain version, dropout on) with the encode's convolutions through
+    `conv1d_measured` against the same step with `conv1d` everywhere: the
+    same loss, gradients, parameters and BN state, bit for bit; MEASURED
+    counts each encode convolution once forward and once backward."""
+    cfg = configure(get_cfg(), tmp_path)
+    cfg.TPU.train_decoder = "fused"
+    batch = next(iter(BeatLoader(build_dataset(cfg, "train"), 2, shuffle=True, drop_last=True, seed=1)))
+    solver = S.Solver(cfg, use_writer=False, device="cpu")
+    p0, s0 = NefNet2Def(L).init(torch.Generator().manual_seed(6))
+    measured = one_train_step(solver, p0, s0, batch, i1=1, i2=2)
+    monkeypatch.setattr(N2, "conv1d_measured", conv1d)
+    plain = one_train_step(solver, p0, s0, batch, i1=1, i2=2)
+    assert measured[4] == {"fwd": ENCODE_CONVS, "bwd": ENCODE_CONVS} and plain[4] == {}
+    assert torch.equal(measured[0], plain[0])
+    for ours, want in zip(measured[1:4], plain[1:4]):
+        assert set(ours) == set(want)
+        for k in want:
+            assert (ours[k] is None and want[k] is None) or torch.equal(ours[k], want[k]), k
+
+
+@pytest.mark.parametrize("model", ["nefnet_eager", "nefnet_fused_plain", "resnet1d"])
+def test_other_models_steps_leave_measured_at_zero(tmp_path, monkeypatch, model):
+    """Nef-Net's convolutions (eager, and the fused pairs' plain versions) and
+    the classifier's keep `conv1d` under the heuristic."""
+    cfg = configure(get_cfg(), tmp_path)
+    shuffle = dict(i1=0, i2=1)
+    if model == "resnet1d":
+        cfg.MODEL.model, cfg.MODEL.arch, cfg.MODEL.loss = "model_resnet1d", "resnet50", "bce"
+        cfg.MODEL.num_classes, cfg.DATA.in_channel, cfg.DATA.lead_num = 5, 8, 1
+        narrow = ResNet1dDef("resnet50", 8, 5, 1, init_channels=4)
+        monkeypatch.setattr(S, "build_model", lambda c: narrow)
+        rng = np.random.default_rng(0)
+        batch = {"data": rng.standard_normal((2, 8, 300)).astype(np.float32),
+                 "label": (rng.uniform(size=(2, 5)) < 0.3).astype(np.float32)}
+        p0, s0 = narrow.init(torch.Generator().manual_seed(6))
+        shuffle = {}
+    else:
+        cfg.MODEL.model = "model_nefnet"
+        if model == "nefnet_fused_plain":
+            cfg.TPU.train_encoder = cfg.TPU.train_decoder = "fused"
+        batch = next(iter(BeatLoader(build_dataset(cfg, "train"), 2, shuffle=True, drop_last=True, seed=1)))
+    solver = S.Solver(cfg, use_writer=False, device="cpu")
+    if model != "resnet1d":
+        assert solver.train_encoder == ("fused" if model == "nefnet_fused_plain" else "xla")
+        p0, s0 = solver.model.init(torch.Generator().manual_seed(6))
+    lvec, grads, *_, counts = one_train_step(solver, p0, s0, batch, **shuffle)
+    assert bool(torch.isfinite(lvec).all()) and any(g is not None for g in grads.values())
+    assert counts == {}
 
 
 @pytest.mark.parametrize("knob", ["train_encoder", "eval_encoder"])

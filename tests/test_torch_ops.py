@@ -43,8 +43,9 @@ def test_upsample_linear_x2_matches_jax(rng):
     close(tops.upsample_linear_x2(torch.tensor(x)), jops.upsample_linear_x2(jnp.asarray(x)))
 
 
+@pytest.mark.parametrize("conv", ["conv1d", "conv1d_measured"])
 @pytest.mark.parametrize("case", ["stem_k15_s2_grouped", "k3_bias", "k1_grouped_bias"])
-def test_conv1d_matches_jax(rng, case):
+def test_conv1d_matches_jax(rng, case, conv):
     if case == "stem_k15_s2_grouped":  # encoder stem (resnet_1d.py:102-103)
         x, w, b, kw = (rng.standard_normal((2, 3, 512)), rng.standard_normal((384, 1, 15)), None,
                        dict(stride=2, padding=7, groups=3))
@@ -56,7 +57,48 @@ def test_conv1d_matches_jax(rng, case):
                        rng.standard_normal(24), dict(groups=3))
     t = lambda a: None if a is None else torch.tensor(np.float32(a))  # noqa: E731
     j = lambda a: None if a is None else jnp.asarray(np.float32(a))  # noqa: E731
-    close(tops.conv1d(t(x), t(w), t(b), **kw), jops.conv1d(j(x), j(w), j(b), **kw))
+    close(getattr(tops, conv)(t(x), t(w), t(b), **kw), jops.conv1d(j(x), j(w), j(b), **kw))
+
+
+# Nef-Net2's encode over folded rows: (x shape, weight shape, bias, conv kwargs)
+MEASURED_CASES = {
+    "conv1_k15_s2": ((3, 1, 512), (128, 1, 15), False, dict(stride=2, padding=7)),
+    "tower_k7": ((3, 128, 128), (128, 128, 7), False, dict(padding=3)),
+    "z_block_k3": ((3, 64, 128), (128, 64, 3), False, dict(padding=1)),
+    "z_residual_k1": ((3, 64, 128), (128, 64, 1), True, {}),
+    "single_conv_k3": ((3, 128, 128), (128, 128, 3), True, dict(padding=1)),
+    "z2_conv2_0_g7": ((2, 896, 16), (896, 128, 3), False, dict(padding=1, groups=7)),
+    "z2_conv2_2_g7": ((2, 448, 32), (896, 64, 3), False, dict(padding=1, groups=7)),
+    "z2_conv2_2_residual_g7": ((2, 448, 32), (896, 64, 1), True, dict(groups=7)),
+}
+
+
+GRADS = {"all": (True, True), "no_input": (False, True), "no_weight": (True, False),
+         "only_bias": (False, False)}
+
+
+@pytest.mark.parametrize("case,grads", [(c, g) for c, spec in MEASURED_CASES.items() for g in GRADS
+                                        if spec[2] or g != "only_bias"])
+def test_conv1d_measured_equals_conv1d_under_autograd(case, grads):
+    """The forward and the input, weight and bias gradients that autograd
+    asks for equal `conv1d`'s bit for bit; the others stay None."""
+    xs, ws, has_bias, kw = MEASURED_CASES[case]
+    g = torch.Generator().manual_seed(sum(xs) + sum(ws))
+    x, w = torch.randn(xs, generator=g), torch.randn(ws, generator=g) * 0.1
+    b = torch.randn(ws[0], generator=g) if has_bias else None
+    needs = GRADS[grads]
+    runs = []
+    for conv in (tops.conv1d, tops.conv1d_measured):
+        xx, ww = x.clone().requires_grad_(needs[0]), w.clone().requires_grad_(needs[1])
+        bb = None if b is None else b.clone().requires_grad_(True)
+        y = conv(xx, ww, bb, **kw)
+        (y * torch.linspace(-1.0, 1.0, y.numel()).reshape(y.shape)).sum().backward()
+        runs.append((y, xx.grad, ww.grad, None if bb is None else bb.grad))
+    for name, ours, want in zip(("out", "dx", "dw", "db"), runs[1], runs[0]):
+        if want is None:
+            assert ours is None, name
+        else:
+            assert torch.equal(ours, want), name
 
 
 def test_conv_transpose_k2s2_matches_jax(rng):
@@ -119,3 +161,38 @@ def test_full_f32_pins_and_restores_tf32_flags():
         assert not torch.backends.cudnn.allow_tf32
         assert not torch.backends.cuda.matmul.allow_tf32
     assert (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32) == before
+
+
+def test_conv1d_measured_sets_and_restores_the_flags(monkeypatch):
+    """cuDNN's find mode is on inside the forward and the backward; after
+    each, and after a call that raises, the three flags are as they were.
+    TF32 is pinned off inside for a float32 CUDA tensor (`precise`)."""
+    flags = lambda: (torch.backends.cudnn.benchmark, torch.backends.cudnn.allow_tf32,  # noqa: E731
+                     torch.backends.cuda.matmul.allow_tf32)
+    seen = {}
+
+    def spy(name, fn):
+        def wrapped(*a, **k):
+            seen[name] = flags()
+            return fn(*a, **k)
+        return wrapped
+
+    monkeypatch.setattr(torch.nn.functional, "conv1d", spy("fwd", torch.nn.functional.conv1d))
+    monkeypatch.setattr(torch.ops.aten, "convolution_backward",
+                        spy("bwd", torch.ops.aten.convolution_backward))
+    for before in [(False, True, False), (True, False, True)]:
+        monkeypatch.setattr(torch.backends.cudnn, "benchmark", before[0])
+        monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", before[1])
+        monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", before[2])
+        x = torch.randn(2, 4, 16, requires_grad=True)
+        y = tops.conv1d_measured(x, torch.randn(8, 4, 3, requires_grad=True), padding=1)
+        assert seen.pop("fwd") == (True, *before[1:]) and flags() == before
+        y.sum().backward()
+        assert seen.pop("bwd") == (True, *before[1:]) and flags() == before
+        with pytest.raises(RuntimeError):
+            tops.conv1d_measured(x, torch.randn(8, 5, 3))  # 4 input channels, weight for 5
+        assert flags() == before
+        cuda_f32 = type("CudaF32", (), {"is_cuda": True, "dtype": torch.float32})()
+        with tops.convs._measured(cuda_f32, new_key=False):
+            assert flags() == (True, False, False)
+        assert flags() == before
