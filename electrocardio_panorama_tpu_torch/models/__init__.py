@@ -27,7 +27,7 @@ from electrocardio_panorama_tpu_torch.models.nefnet2 import (
 )
 from electrocardio_panorama_tpu_torch.models.resnet1d import init_resnet1d, mask_shapes, resnet1d_apply, resnet1d_plan
 from electrocardio_panorama_tpu_torch.ops import dropout_mask
-from electrocardio_panorama_tpu_torch.ops.kernels.encoder_fused import make_fused_encode_fn
+from electrocardio_panorama_tpu_torch.ops.kernels.encoder_fused import draw_masks as fused_draw_masks, make_fused_encode_fn
 from electrocardio_panorama_tpu_torch.training.metrics import micro_f1
 
 __all__ = [
@@ -115,13 +115,14 @@ class NefNetDef(ViewSynthesis):
                               theta_encoder_len=theta_encoder_len)
         self.decode_views = partial(decode_views, theta_encoder_len=theta_encoder_len)
         self.gen_ecg = partial(gen_ecg, lead_num=lead_num, theta_encoder_len=theta_encoder_len)
+        self.draw_masks = partial(fused_draw_masks, L=lead_num)  # the eager encoder takes them too
 
-    def fused_encode(self, *, plain: bool = False):
-        """`encode` through the fused encoder A2 in eval form: kernel A2 on a
-        CUDA tensor (`plain=True`: its plain version), the plain version on
-        the CPU; the mlp1 gate, ROI ramp, roi_reverse and lead means stay
-        plain around it (ops/kernels/encoder_fused.py::make_fused_encode_fn)."""
-        return make_fused_encode_fn(self.lead_num, self.theta_encoder_len, plain=plain)
+    def fused_encode(self, *, ckpt="tower", plain: bool = False):
+        """`encode` through A2 (eval) or A2/A3 (train; `ckpt`, what A3
+        recomputes) on a CUDA tensor, their plain version on the CPU or under
+        `plain` (ops/kernels/encoder_fused.py::make_fused_encode_fn): the
+        Solver's train and eval encoders and the render's encode."""
+        return make_fused_encode_fn(self.lead_num, self.theta_encoder_len, ckpt=ckpt, plain=plain)
 
 
 class NefNet2Def(ViewSynthesis):
@@ -140,6 +141,17 @@ class NefNet2Def(ViewSynthesis):
         self.apply = partial(nefnet2_apply, lead_num=lead_num, theta_encoder_len=theta_encoder_len)
         self.decode_views = partial(decode_views, theta_encoder_len=theta_encoder_len)
         self.draw_masks = partial(nefnet2_draw_masks, lead_num=lead_num)
+
+    @staticmethod
+    def check_knobs(cfg) -> None:
+        """A fused encoder raises: there is none for Nef-Net2."""
+        for knob in ("train_encoder", "eval_encoder"):
+            if cfg.TPU[knob] == "fused":
+                raise ValueError(
+                    f"TPU.{knob}='fused' supports model_nefnet only: kernels A2/A3 compute Nef-Net's "
+                    "encoder, one private tower per lead through conv groups and lead-grouped "
+                    "z-blocks; Nef-Net2 folds the leads into the batch through one shared tower "
+                    "and adds the single_conv_z1/z2 convs, another function (use 'xla')")
 
     def encode(self, params, x, input_thetas, rois, *, masks=None, train=False,
                stop_before_reverse=False) -> NefNetLatents:
@@ -175,6 +187,7 @@ class ResNet1dDef:
     0.5, and the best epoch is the one of the highest test F1."""
 
     classifier = True
+    fused_encode = None
     loss_widths = (1, 1)
     # F1 reads 0 until a score passes 0.5, and the first epoch is still the best so far
     score, score_floor = "f1", -float("inf")

@@ -9,8 +9,10 @@ the caller names it.
     PSNR/SSIM with the gen/reg split on the device; the rest views decode
     through the streamed-basis kernel A1 under TPU.eval_decoder;
   * the encoder of the train step is the fused pair A2/A3 under
-    TPU.train_encoder ('auto' picks it on CUDA with bfloat16 compute on
-    model_nefnet, as the JAX package picks its Pallas pair on a TPU);
+    TPU.train_encoder, and of the eval step A2 in eval form under
+    TPU.eval_encoder, both the definition's `fused_encode` ('auto' picks the
+    pair on CUDA with bfloat16 compute where the definition has one, as the
+    JAX package picks its Pallas pair on a TPU);
   * the three grouped decodes of the train step go through the fused pair
     A4f/A4b under TPU.train_decoder 'fused' ('xla', the default, is the eager
     grouped decode; there is no 'auto', as in the JAX package);
@@ -30,10 +32,11 @@ the caller names it.
     [B, C] through the same phases and spans, one dropout mask per block
     from the step's generator, the loss vector [1] (BCE); eval gives the BCE
     and [tp, fp, fn] at 0.5 (training/metrics.py). No A1-A4 function is
-    built for it; the knobs it does not take raise (its `check_knobs`).
-    What differs between the models in the epoch loop, restore and val (the
-    loss widths, the epoch's scalars, the best-epoch score) is the bound
-    definition's (models/__init__.py).
+    built for it;
+  * what differs between the models is the bound definition's
+    (models/__init__.py): the knobs it takes (`check_knobs` raises on the
+    others), its fused encode, its dropout masks, the loss widths, the
+    epoch's scalars and the best-epoch score.
 
 Checkpoint cadence and best-model selection mirror the reference: every epoch
 saved as epoch_{n}.pkl, best tracked by test psnr_gen into best_valid.pkl,
@@ -52,7 +55,6 @@ import torch
 from electrocardio_panorama_tpu_torch.models import build_loss, build_model
 from electrocardio_panorama_tpu_torch.ops import angular_encode, full_f32
 from electrocardio_panorama_tpu_torch.ops.kernels.decoder_train import make_train_decode_fn
-from electrocardio_panorama_tpu_torch.ops.kernels.encoder_fused import draw_masks, make_fused_encode_fn
 from electrocardio_panorama_tpu_torch.parallel import (
     BatchStatSync,
     all_reduce_mean_,
@@ -171,8 +173,7 @@ class Solver:
             self.train_step, self.eval_step = self._classify_train_step, self._classify_eval_step
         else:
             self.train_encoder = self._train_encoder_mode()
-            self._train_enc_fn = (make_fused_encode_fn(cfg.DATA.lead_num, cfg.MODEL.theta_L,
-                                                       ckpt=cfg.TPU.encoder_ckpt)
+            self._train_enc_fn = (self.model.fused_encode(ckpt=cfg.TPU.encoder_ckpt)
                                   if self.train_encoder == "fused" else None)
             # TPU.train_decoder 'fused': the grouped decodes through A4f/A4b, in
             # the compute dtype (on a CPU tensor the pair's plain version)
@@ -187,27 +188,18 @@ class Solver:
         self.history: dict[int, dict] = {}
 
     # ----------------------------------------------------------------- knobs
-    def _nefnet_only(self, knob: str) -> None:
-        if self.cfg.MODEL.model != "model_nefnet":
-            raise ValueError(
-                f"{knob}='fused' supports model_nefnet only: kernels A2/A3 compute Nef-Net's "
-                "encoder, one private tower per lead through conv groups and lead-grouped "
-                "z-blocks; Nef-Net2 folds the leads into the batch through one shared tower "
-                "and adds the single_conv_z1/z2 convs, another function (use 'xla')")
-
     def _train_encoder_mode(self) -> str:
         """TPU.train_encoder: 'auto' picks the fused pair A2/A3 on CUDA with
-        bfloat16 compute on model_nefnet, and the eager encoder elsewhere;
-        'fused' forces the pair (float32 or bfloat16; on a CPU tensor it runs
-        the pair's plain version); 'xla' names the eager encoder."""
+        bfloat16 compute where the definition has a fused encode (Nef-Net's),
+        and the eager encoder elsewhere; 'fused' forces the pair (float32 or
+        bfloat16; on a CPU tensor it runs the pair's plain version); 'xla'
+        names the eager encoder."""
         mode = self.cfg.TPU.train_encoder
         if mode == "auto":
             mode = ("fused" if self.mixed and self.device.type == "cuda"
-                    and self.cfg.MODEL.model == "model_nefnet" else "xla")
+                    and self.model.fused_encode is not None else "xla")
         if mode not in ("xla", "fused"):
             raise ValueError(f"unknown TPU.train_encoder {mode!r} (use 'auto', 'xla', or 'fused')")
-        if mode == "fused":
-            self._nefnet_only("TPU.train_encoder")
         return mode
 
     def _eval_decoder_mode(self) -> str:
@@ -226,8 +218,7 @@ class Solver:
         encoder."""
         enc = self.cfg.TPU.eval_encoder
         if enc == "fused":
-            self._nefnet_only("TPU.eval_encoder")
-            return make_fused_encode_fn(self.cfg.DATA.lead_num, self.cfg.MODEL.theta_L)
+            return self.model.fused_encode()
         if enc != "xla":
             raise ValueError(f"unknown TPU.eval_encoder {enc!r} (use 'xla' or 'fused')")
         return None
@@ -235,16 +226,11 @@ class Solver:
     @staticmethod
     def _encode_hook(fn) -> dict:
         """The `encode_fn` keyword for the fused encoder, which only
-        Nef-Net's apply takes (_nefnet_only)."""
+        Nef-Net's apply takes (the other definitions' check_knobs)."""
         return {"encode_fn": fn} if fn is not None else {}
 
     def draw_masks(self, gen: torch.Generator, B: int):
-        """The step's pre-scaled dropout masks in the model's layout. Nef-Net's
-        are the fused encoder's (kernels A2/A3 and the eager encoder take the
-        same tuple, ops.kernels.encoder_fused.draw_masks); Nef-Net2 draws its
-        own over the leads folded into the batch."""
-        if self.cfg.MODEL.model == "model_nefnet":
-            return draw_masks(gen, B, self.cfg.DATA.lead_num, dtype=self.compute_dtype)
+        """The step's pre-scaled dropout masks in the definition's layout."""
         return self.model.draw_masks(gen, B, dtype=self.compute_dtype)
 
     def _precision(self):

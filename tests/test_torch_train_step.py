@@ -158,7 +158,7 @@ def port_step(params, state, batch, masks_k, optim, encoder, dtype, monkeypatch,
     tp, ts = params_from_jax({k: np.asarray(v) for k, v in params.items()},
                              {k: np.asarray(v) for k, v in state.items()})
     masks = tuple(torch.tensor(m).to(getattr(torch, dtype)) for m in masks_model_layout(*masks_k))
-    monkeypatch.setattr(S, "draw_masks", lambda gen, b, lead_num, dtype: masks)
+    monkeypatch.setattr(S.Solver, "draw_masks", lambda self, gen, b: masks)
     monkeypatch.setattr(S.os, "makedirs", lambda *a, **k: None)
     solver = S.Solver(cfg, use_writer=False, device="cpu")
     assert (solver.train_encoder, solver.train_decoder) == (encoder, decoder)
