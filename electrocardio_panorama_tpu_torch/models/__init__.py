@@ -26,7 +26,7 @@ from electrocardio_panorama_tpu_torch.models.nefnet2 import (
     nefnet2_apply,
 )
 from electrocardio_panorama_tpu_torch.models.resnet1d import init_resnet1d, mask_shapes, resnet1d_apply, resnet1d_plan
-from electrocardio_panorama_tpu_torch.ops import dropout_mask
+from electrocardio_panorama_tpu_torch.ops import GraphedTrain, dropout_mask
 from electrocardio_panorama_tpu_torch.ops.kernels.encoder_fused import draw_masks as fused_draw_masks, make_fused_encode_fn
 from electrocardio_panorama_tpu_torch.training.metrics import micro_f1
 
@@ -67,6 +67,11 @@ class ViewSynthesis:
     classifier = False
     loss_widths = (4, 5)
     score, score_floor = "psnr_gen", 0.0
+
+    def graphed_encode(self, *, mesh: bool):
+        """The train step's eager encode replayed from CUDA graphs, where
+        the definition has one (`encode_fn` of its apply); None."""
+        return None
 
     @staticmethod
     def check_knobs(cfg) -> None:
@@ -129,7 +134,8 @@ class NefNet2Def(ViewSynthesis):
     """Bound Nef-Net2 definition (the shared single-lead tower)."""
 
     # A2 computes Nef-Net's lead-grouped chain, not the shared tower and its
-    # single_conv_z1/z2: Nef-Net2 always encodes eagerly
+    # single_conv_z1/z2: Nef-Net2 encodes eagerly (its train step from CUDA
+    # graphs of the eager encode, graphed_encode)
     fused_encode = None
 
     def __init__(self, lead_num: int, theta_encoder_len: int = 1, dtype=torch.float32):
@@ -141,6 +147,28 @@ class NefNet2Def(ViewSynthesis):
         self.apply = partial(nefnet2_apply, lead_num=lead_num, theta_encoder_len=theta_encoder_len)
         self.decode_views = partial(decode_views, theta_encoder_len=theta_encoder_len)
         self.draw_masks = partial(nefnet2_draw_masks, lead_num=lead_num)
+
+    def graphed_encode(self, *, mesh: bool):
+        """The Solver's train encode (`encode_fn` of nefnet2_apply): a train
+        encode with masks on CUDA tensors runs encode_latents2 and its
+        gradient from two CUDA graphs (ops.GraphedTrain: the first such call
+        is the eager warm-up, the second captures; a batch of other shapes
+        or dtype runs eagerly), except under a device `mesh`, where it runs
+        eagerly; the eval encode and every encode of CPU tensors are
+        encode_latents2's own."""
+        encode = partial(encode_latents2, lead_num=self.lead_num, theta_encoder_len=self.theta_encoder_len)
+
+        def train_encode(p, x, input_thetas, rois, *masks):
+            return encode(p, x, input_thetas, rois, masks=masks, train=True)
+
+        graphed = GraphedTrain(train_encode, eager="mesh" if mesh else None)
+
+        def fn(p, x, input_thetas, rois, *, masks=None, train=False):
+            if train and masks is not None:
+                return graphed(p, x, input_thetas, rois, *masks)
+            return encode(p, x, input_thetas, rois, masks=masks, train=train)
+
+        return fn
 
     @staticmethod
     def check_knobs(cfg) -> None:

@@ -20,6 +20,8 @@ registers it as 'model_nefnet2' and so does the port, without gen_ecg.
 
 from __future__ import annotations
 
+from functools import partial
+
 import torch
 from torch import nn
 
@@ -141,7 +143,7 @@ def encode_latents2(p: dict, x, input_thetas, rois, *, lead_num: int, theta_enco
 
 def nefnet2_apply(p: dict, s: dict, x, input_thetas, query_theta, rois, rest_theta=None, *,
                   lead_num: int, theta_encoder_len: int = 1, phase: str = "train", masks=None,
-                  shuffle_idx=None, rest_decode_fn=None, train_decode_fn=None):
+                  shuffle_idx=None, rest_decode_fn=None, train_decode_fn=None, encode_fn=None):
     """Full forward, the JAX package's nefnet2_apply.
 
     phase 'train': ((out, shuffle_p, shuffle_l), new_state); dropout from
@@ -149,13 +151,15 @@ def nefnet2_apply(p: dict, s: dict, x, input_thetas, query_theta, rois, rest_the
     phase 'val'/'test': ((out, shuffle_p, shuffle_l, rest_out), state);
     phase 'gen': ((z1_mean, z2_mean) [B, 128, 128] each, state).
     `shuffle_idx` = (z1 lead, z2 lead), default (0, 0); the `rest_decode_fn`
-    and `train_decode_fn` hooks are nefnet_apply's.
+    and `train_decode_fn` hooks are nefnet_apply's; `encode_fn(p, x,
+    input_thetas, rois, masks=, train=) -> (z1, z2)` replaces
+    encode_latents2 (the Solver passes NefNet2Def.graphed_encode's).
     """
     if phase not in ("train", "val", "test", "gen"):
         raise KeyError("please type correct phase")
     train = phase == "train"
-    z1_leads, z2_leads = encode_latents2(p, x, input_thetas, rois, lead_num=lead_num,
-                                         theta_encoder_len=theta_encoder_len, masks=masks, train=train)
+    encode = encode_fn or partial(encode_latents2, lead_num=lead_num, theta_encoder_len=theta_encoder_len)
+    z1_leads, z2_leads = encode(p, x, input_thetas, rois, masks=masks, train=train)
     z1_mean, z2_mean = z1_leads.mean(dim=1), z2_leads.mean(dim=1)
     if phase == "gen":
         return (z1_mean, z2_mean), s

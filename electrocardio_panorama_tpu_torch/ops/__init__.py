@@ -13,6 +13,7 @@ from electrocardio_panorama_tpu_torch.ops.convs import (
     linear,
     max_pool1d,
 )
+from electrocardio_panorama_tpu_torch.ops.graphed import GRAPHED, GraphedTrain
 from electrocardio_panorama_tpu_torch.ops.resample import upsample_linear_x2
 from electrocardio_panorama_tpu_torch.ops.roi import roi_align_1d, roi_align_ramp, roi_pool_1d, roi_reverse_1d
 from electrocardio_panorama_tpu_torch.ops.theta import angular_encode, theta_feature_dim
@@ -23,6 +24,8 @@ __all__ = [
     "conv1d",
     "conv1d_measured",
     "MEASURED",
+    "GRAPHED",
+    "GraphedTrain",
     "conv_transpose1d_k2s2",
     "max_pool1d",
     "linear",

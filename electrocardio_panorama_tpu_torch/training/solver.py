@@ -12,7 +12,9 @@ the caller names it.
     TPU.train_encoder, and of the eval step A2 in eval form under
     TPU.eval_encoder, both the definition's `fused_encode` ('auto' picks the
     pair on CUDA with bfloat16 compute where the definition has one, as the
-    JAX package picks its Pallas pair on a TPU);
+    JAX package picks its Pallas pair on a TPU); otherwise the train step's
+    eager encode is the definition's `graphed_encode` where it has one
+    (Nef-Net2's: replayed from CUDA graphs on one device, without a mesh);
   * the three grouped decodes of the train step go through the fused pair
     A4f/A4b under TPU.train_decoder 'fused' ('xla', the default, is the eager
     grouped decode; there is no 'auto', as in the JAX package);
@@ -174,7 +176,8 @@ class Solver:
         else:
             self.train_encoder = self._train_encoder_mode()
             self._train_enc_fn = (self.model.fused_encode(ckpt=cfg.TPU.encoder_ckpt)
-                                  if self.train_encoder == "fused" else None)
+                                  if self.train_encoder == "fused"
+                                  else self.model.graphed_encode(mesh=self.mesh is not None))
             # TPU.train_decoder 'fused': the grouped decodes through A4f/A4b, in
             # the compute dtype (on a CPU tensor the pair's plain version)
             self.train_decoder = cfg.TPU.train_decoder
@@ -225,8 +228,8 @@ class Solver:
 
     @staticmethod
     def _encode_hook(fn) -> dict:
-        """The `encode_fn` keyword for the fused encoder, which only
-        Nef-Net's apply takes (the other definitions' check_knobs)."""
+        """The `encode_fn` keyword: Nef-Net's fused encoder, or Nef-Net2's
+        graphed train encode (the definition's `graphed_encode`)."""
         return {"encode_fn": fn} if fn is not None else {}
 
     def draw_masks(self, gen: torch.Generator, B: int):
