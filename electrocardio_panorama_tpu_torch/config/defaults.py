@@ -32,7 +32,10 @@ def get_default_cfg() -> Node:
         6.57354042, 6.31023917, 6.05944371, 7.05612394,
     ]
     cfg.DATA.lead_num = 1
-    cfg.DATA.in_channel = 8            # model_resnet1d: leads of a record (Tianchi: 8)
+    cfg.DATA.in_channel = 8            # model_resnet1d, model_st_mem_vit: leads of a record (Tianchi: 8)
+    # tianchi_cls records as the model takes them: "raw" (the 8 stored leads
+    # at 500 Hz) or "12lead_250hz" (data/tianchi.py::twelve_leads_250hz)
+    cfg.DATA.cls_input = "raw"
     cfg.DATA.noise = False
     cfg.DATA.train_data_mode = "normal"
     cfg.DATA.super_mode = "normal"
@@ -55,7 +58,7 @@ def get_default_cfg() -> Node:
     cfg.MODEL.jitter_factor = 0.0
     cfg.MODEL.theta_L = 1
     # model_resnet1d, the reference's 1-D ResNet classifier (resnet_1d.py)
-    cfg.MODEL.arch = "resnet50"
+    cfg.MODEL.arch = "resnet50"        # model_st_mem_vit: "vit_base"
     cfg.MODEL.num_classes = 55
 
     # ---------------------------------------------------------------- SOLVER

@@ -125,14 +125,36 @@ def split_80_20(n: int, seed: int) -> tuple[np.ndarray, np.ndarray]:
     return perm[n_test:], perm[:n_test]
 
 
+# the twelve standard leads in ST-MEM's order, as rows of [I, II, V1..V6, III,
+# aVR, aVL, aVF] (derive_augmented_leads)
+TWELVE_LEADS = [0, 1, 8, 9, 10, 11, 2, 3, 4, 5, 6, 7]
+DECIMATED = 4500  # samples of a 500 Hz record that the 2:1 decimation keeps: 9 s
+
+
+def twelve_leads_250hz(data8: np.ndarray) -> np.ndarray:
+    """A Tianchi record [8, 5000] (I, II, V1..V6 at 500 Hz) as ST-MEM takes
+    it: [12, 2250] in the order I, II, III, aVR, aVL, aVF, V1..V6, the four
+    limb leads derived by Einthoven's and Goldberger's definitions
+    (derive_augmented_leads), every second sample of the first 9 s (250 Hz;
+    no anti-alias filter), each lead standardized to mean 0 and standard
+    deviation 1 (float64 throughout)."""
+    x = derive_augmented_leads(np.asarray(data8, dtype=np.float64))[TWELVE_LEADS, :DECIMATED:2]
+    return (x - x.mean(axis=1, keepdims=True)) / x.std(axis=1, keepdims=True)
+
+
+CLS_INPUTS = {"raw": None, "12lead_250hz": twelve_leads_250hz}
+
+
 class TianchiClassificationDataset:
     """CSV-driven multi-label classification reader (reference
     EcgTianChiDataset, tianchi.py:10-43): column 0 is the npy filename, columns
     3+ are the binary labels; 80/20 train/test split seeded by cfg.seed
-    (`split_80_20`). Feeds the 1-D ResNet classifier (MODEL.model
-    'model_resnet1d', DATA.dataset 'tianchi_cls'); an example is {"data":
-    [leads, T] float32, "label": [C] int64}, which `collate` stacks. Reads the
-    CSV with the csv module, as the card's machine has no pandas."""
+    (`split_80_20`). Feeds the classifiers (MODEL.model 'model_resnet1d' and
+    'model_st_mem_vit', DATA.dataset 'tianchi_cls'); an example is {"data":
+    [leads, T] float32, "label": [C] int64}, which `collate` stacks: the
+    stored 8 leads under DATA.cls_input 'raw', or `twelve_leads_250hz`'s 12
+    under '12lead_250hz' (before any `transform`). Reads the CSV with the csv
+    module, as the card's machine has no pandas."""
 
     def __init__(self, cfg, phase: str, transform=None):
         import csv
@@ -148,12 +170,17 @@ class TianchiClassificationDataset:
         self.label = np.array([[int(float(v)) for v in rows[i][3:]] for i in keep],
                               dtype=np.int64).reshape(len(keep), len(self.label_name))
         self.transform = transform
+        if cfg.DATA.cls_input not in CLS_INPUTS:
+            raise ValueError(f"unknown DATA.cls_input {cfg.DATA.cls_input!r} (use {' or '.join(map(repr, CLS_INPUTS))})")
+        self.layout = CLS_INPUTS[cfg.DATA.cls_input]
 
     def __len__(self) -> int:
         return len(self.files)
 
     def __getitem__(self, index: int, rng=None) -> dict:
         data = np.load(os.path.join(self.data_root, self.files[index])).astype(np.float64)
+        if self.layout is not None:
+            data = self.layout(data)
         if self.transform is not None:
             data = self.transform(data)
         return {"data": data.astype(np.float32), "label": self.label[index], "id": self.files[index]}

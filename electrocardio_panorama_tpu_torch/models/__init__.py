@@ -26,6 +26,7 @@ from electrocardio_panorama_tpu_torch.models.nefnet2 import (
     nefnet2_apply,
 )
 from electrocardio_panorama_tpu_torch.models.resnet1d import init_resnet1d, mask_shapes, resnet1d_apply, resnet1d_plan
+from electrocardio_panorama_tpu_torch.models.stmem import init_stmem, stmem_apply, stmem_meta
 from electrocardio_panorama_tpu_torch.ops import GraphedTrain, dropout_mask
 from electrocardio_panorama_tpu_torch.ops.kernels.encoder_fused import draw_masks as fused_draw_masks, make_fused_encode_fn
 from electrocardio_panorama_tpu_torch.training.metrics import micro_f1
@@ -39,6 +40,7 @@ __all__ = [
     "NefNet2",
     "NefNet2Def",
     "ResNet1dDef",
+    "STMEMViTDef",
     "ViewSynthesis",
     "init_nefnet2",
     "nefnet2_apply",
@@ -205,20 +207,58 @@ class NefNet2Def(ViewSynthesis):
             "gen phase never produces); use model_nefnet for synthesis")
 
 
-class ResNet1dDef:
-    """Bound 1-D ResNet classifier (models/resnet1d.py; the reference's
-    resnet_1d.py): records [B, in_channel, T] -> multi-label sigmoid scores
-    [B, num_classes]. The layer plan is fixed here, at the reference's 64
-    stem channels unless a test narrows it; `init` returns (params, state) as
-    the Nef-Net definitions do. The Solver takes the classifier's steps for
-    it (`classifier`); its eval reads the BCE and the micro-averaged F1 at
-    0.5, and the best epoch is the one of the highest test F1."""
+class MultiLabelClassifier:
+    """What the Solver asks of a multi-label classifier definition besides
+    its forward: records [B, in_channel, T] -> sigmoid scores [B,
+    num_classes]. The Solver takes the classifier's steps for it
+    (`classifier`); its eval reads the BCE and the micro-averaged F1 at 0.5,
+    and the best epoch is the one of the highest test F1. `name` is the
+    model's MODEL.model and `eager_what` what runs eagerly in it, for the
+    errors of `check_knobs`."""
 
     classifier = True
     fused_encode = None
     loss_widths = (1, 1)
     # F1 reads 0 until a score passes 0.5, and the first epoch is still the best so far
     score, score_floor = "f1", -float("inf")
+    name = eager_what = ""
+
+    def check_knobs(self, cfg) -> None:
+        """What the classifier's step does not take raises, naming why."""
+        for knob in ("train_encoder", "eval_encoder", "train_decoder"):
+            if cfg.TPU[knob] == "fused":
+                raise ValueError(
+                    f"TPU.{knob}='fused' does not apply to {self.name}: kernels A2/A3 and A4f/A4b compute "
+                    f"Nef-Net's encoder and decoder; {self.eager_what} runs eagerly (use 'xla')")
+        if list(cfg.TPU.mesh_shape):
+            raise NotImplementedError(
+                f"TPU.mesh_shape under {self.name}: the data-parallel classifier is not ported yet "
+                "(ROADMAP.md Queue F); train it on one device (TPU.mesh_shape [])")
+        if cfg.TPU.compute_dtype != "float32":
+            raise NotImplementedError(
+                f"TPU.compute_dtype {cfg.TPU.compute_dtype!r} under {self.name}: only float32 is ported "
+                "(the bfloat16 classifier is open in ROADMAP.md Queue F)")
+
+    @staticmethod
+    def epoch_scalars(trm, tem, te) -> tuple[dict, dict, str]:
+        """The BCEs and the test split's micro-averaged F1 over the epoch's
+        summed [tp, fp, fn]."""
+        f1 = float(micro_f1(te["metrics"].sum(axis=0))) if te["metrics"] is not None else 0.0
+        return {"train_loss_all": trm[0], "test_loss_all": tem[0], "f1": f1}, {"f1": f1}, f"f1: {f1}"
+
+    @staticmethod
+    def val_summary(te) -> tuple[dict, str]:
+        out = {"loss": float(te["losses"].mean()), "f1": float(micro_f1(te["metrics"].sum(axis=0)))}
+        return out, "loss:{}, f1:{}".format(out["loss"], out["f1"])
+
+
+class ResNet1dDef(MultiLabelClassifier):
+    """Bound 1-D ResNet classifier (models/resnet1d.py; the reference's
+    resnet_1d.py). The layer plan is fixed here, at the reference's 64 stem
+    channels unless a test narrows it; `init` returns (params, state) as the
+    Nef-Net definitions do."""
+
+    name, eager_what = "model_resnet1d", "the classifier's Bottleneck tower"
 
     def __init__(self, arch: str, in_channel: int, num_classes: int, lead_num: int = 1, dtype=torch.float32, *,
                  init_channels: int = 64):
@@ -242,34 +282,30 @@ class ResNet1dDef:
         return [dropout_mask(shape, DROPOUT_RATE, gen, dtype=dtype)
                 for shape in mask_shapes(self.meta, batch, length)]
 
-    @staticmethod
-    def check_knobs(cfg) -> None:
-        """What the classifier's step does not take raises, naming why."""
-        for knob in ("train_encoder", "eval_encoder", "train_decoder"):
-            if cfg.TPU[knob] == "fused":
-                raise ValueError(
-                    f"TPU.{knob}='fused' does not apply to model_resnet1d: kernels A2/A3 and A4f/A4b compute "
-                    "Nef-Net's encoder and decoder; the classifier's Bottleneck tower runs eagerly (use 'xla')")
-        if list(cfg.TPU.mesh_shape):
-            raise NotImplementedError(
-                "TPU.mesh_shape under model_resnet1d: the data-parallel classifier is not ported yet "
-                "(ROADMAP.md Queue F); train it on one device (TPU.mesh_shape [])")
-        if cfg.TPU.compute_dtype != "float32":
-            raise NotImplementedError(
-                f"TPU.compute_dtype {cfg.TPU.compute_dtype!r} under model_resnet1d: only float32 is ported "
-                "(the bfloat16 classifier is open in ROADMAP.md Queue F)")
 
-    @staticmethod
-    def epoch_scalars(trm, tem, te) -> tuple[dict, dict, str]:
-        """The BCEs and the test split's micro-averaged F1 over the epoch's
-        summed [tp, fp, fn]."""
-        f1 = float(micro_f1(te["metrics"].sum(axis=0))) if te["metrics"] is not None else 0.0
-        return {"train_loss_all": trm[0], "test_loss_all": tem[0], "f1": f1}, {"f1": f1}, f"f1: {f1}"
+class STMEMViTDef(MultiLabelClassifier):
+    """Bound ST-MEM ViT classifier (models/stmem.py; ST-MEM's
+    st_mem_vit.py): records [B, num_leads, seq_len] cut into patches, both
+    sizes MODEL.arch's (vit_base: 2,250 samples, patches of 75). No BatchNorm
+    (the state is empty) and no dropout (no masks). `widths` overrides
+    MODEL.arch's sizes (a test's narrow encoder)."""
 
-    @staticmethod
-    def val_summary(te) -> tuple[dict, str]:
-        out = {"loss": float(te["losses"].mean()), "f1": float(micro_f1(te["metrics"].sum(axis=0)))}
-        return out, "loss:{}, f1:{}".format(out["loss"], out["f1"])
+    name, eager_what = "model_st_mem_vit", "the ViT's blocks"
+
+    def __init__(self, arch: str, num_leads: int, num_classes: int, dtype=torch.float32, **widths):
+        self.num_classes, self.dtype = num_classes, dtype
+        self.meta = stmem_meta(arch, num_leads=num_leads, num_classes=num_classes, **widths)
+
+    def init(self, generator: torch.Generator, device="cpu"):
+        return init_stmem(generator, self.meta, dtype=self.dtype, device=device), {}
+
+    def apply(self, params, state, x, *, train: bool = False, masks=None):
+        """(scores [B, num_classes], no state updates)."""
+        return stmem_apply(params, self.meta, x), {}
+
+    def draw_masks(self, gen: torch.Generator, batch: int, length: int, dtype=torch.float32) -> list:
+        """No masks: every dropout of the source is 0."""
+        return []
 
 
 def build_model(cfg):
@@ -277,7 +313,9 @@ def build_model(cfg):
     'model_nefnet2' as the JAX package registers it besides (the reference
     defines Model_nefnet2 but never registers it); 'model_resnet1d', the
     reference's 1-D ResNet classifier (network/encoder/resnet_1d.py, which
-    its registry never names), at MODEL.arch."""
+    its registry never names), at MODEL.arch; 'model_st_mem_vit', ST-MEM's
+    ViT encoder with a linear head (MODEL.arch 'vit_base'), fine-tuned as a
+    multi-label classifier."""
     dtype = getattr(torch, cfg.TPU.param_dtype) if "TPU" in cfg else torch.float32
     if cfg.MODEL.model == "model_nefnet":
         return NefNetDef(cfg.DATA.lead_num, cfg.MODEL.theta_L, dtype)
@@ -285,10 +323,12 @@ def build_model(cfg):
         return NefNet2Def(cfg.DATA.lead_num, cfg.MODEL.theta_L, dtype)
     if cfg.MODEL.model == "model_resnet1d":
         return ResNet1dDef(cfg.MODEL.arch, cfg.DATA.in_channel, cfg.MODEL.num_classes, cfg.DATA.lead_num, dtype)
+    if cfg.MODEL.model == "model_st_mem_vit":
+        return STMEMViTDef(cfg.MODEL.arch, cfg.DATA.in_channel, cfg.MODEL.num_classes, dtype)
     raise ValueError(
         "build model: model name error "
         f"(MODEL.model={cfg.MODEL.model!r}; registered: 'model_nefnet', "
-        "'model_nefnet2', 'model_resnet1d' — the default config ships with the reference's "
+        "'model_nefnet2', 'model_resnet1d', 'model_st_mem_vit' — the default config ships with the reference's "
         "unregistered 'modelv2', so set MODEL.model in your yml or overrides)"
     )
 

@@ -1,5 +1,7 @@
-"""Compute ops of the port: convs, resampling, ROI ops, angular encoding."""
+"""Compute ops of the port: convs, resampling, ROI ops, angular encoding, and
+the transformer's LayerNorm, GELU and attention (`ops.attention.attention`)."""
 
+from electrocardio_panorama_tpu_torch.ops.attention import ATTENTION, gelu, layer_norm
 from electrocardio_panorama_tpu_torch.ops.convs import (
     MEASURED,
     batch_norm1d,
@@ -26,6 +28,9 @@ __all__ = [
     "MEASURED",
     "GRAPHED",
     "GraphedTrain",
+    "ATTENTION",
+    "gelu",
+    "layer_norm",
     "conv_transpose1d_k2s2",
     "max_pool1d",
     "linear",

@@ -29,10 +29,12 @@ the caller names it.
     eval metrics are averaged over the ranks, and rank 0 alone takes the run
     lock, writes scalars and checkpoints and paints;
   * for a classifier definition (MODEL.model 'model_resnet1d', the
-    reference's 1-D ResNet), decided once in __init__, the steps are the
-    classifier's: records `data` [B, in_channel, T] and multi-hot `label`
-    [B, C] through the same phases and spans, one dropout mask per block
-    from the step's generator, the loss vector [1] (BCE); eval gives the BCE
+    reference's 1-D ResNet, or 'model_st_mem_vit', ST-MEM's ViT), decided
+    once in __init__, the steps are the classifier's: records `data`
+    [B, in_channel, T] and multi-hot `label` [B, C] through the same phases
+    and spans, the definition's dropout masks from the step's generator (one
+    per ResNet block, none for the ViT), the loss vector [1] (BCE) and the
+    configured optimizer (SGD or Adam); eval gives the BCE
     and [tp, fp, fn] at 0.5 (training/metrics.py). No A1-A4 function is
     built for it;
   * what differs between the models is the bound definition's
@@ -344,9 +346,9 @@ class Solver:
 
     def _classify_train_step(self, params: dict, bn_state: dict, opt, *, epoch: int, step: int, i1: int = 0,
                              i2: int = 0, batch: dict):
-        """The classifier's step (`train_step` under model_resnet1d; the
-        standin indices are unused): records and labels to the device, the
-        blocks' dropout masks from the step's generator, forward, BCE,
+        """The classifier's step (`train_step` under a classifier definition;
+        the standin indices are unused): records and labels to the device, the
+        definition's dropout masks from the step's generator, forward, BCE,
         backward and the update, in the phases and spans of Nef-Net's step.
         Returns (new bn_state, loss vector [1] on the device)."""
         with span("ecgpan.train_step"):
@@ -369,7 +371,7 @@ class Solver:
 
     @torch.no_grad()
     def _classify_eval_step(self, params: dict, bn_state: dict, batch: dict):
-        """The classifier's eval (`eval_step` under model_resnet1d), in
+        """The classifier's eval (`eval_step` under a classifier definition), in
         Nef-Net's form: (scores [B, C], no rest views, losses [1] = BCE,
         metrics [3] = tp, fp, fn at a threshold of 0.5 for the epoch's
         micro-averaged F1, no per-lead metrics)."""
