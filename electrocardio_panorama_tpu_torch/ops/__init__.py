@@ -1,5 +1,6 @@
-"""Compute ops of the port: convs, resampling, ROI ops, angular encoding, and
-the transformer's LayerNorm, GELU and attention (`ops.attention.attention`)."""
+"""Compute ops of the port: convs, resampling, ROI ops, angular encoding, the
+transformer's LayerNorm, GELU and attention (`ops.attention.attention`), and
+the staging of a step's host arrays to the device (`ops.staging`)."""
 
 from electrocardio_panorama_tpu_torch.ops.attention import ATTENTION, gelu, layer_norm
 from electrocardio_panorama_tpu_torch.ops.convs import (
@@ -18,6 +19,7 @@ from electrocardio_panorama_tpu_torch.ops.convs import (
 from electrocardio_panorama_tpu_torch.ops.graphed import GRAPHED, GraphedTrain
 from electrocardio_panorama_tpu_torch.ops.resample import upsample_linear_x2
 from electrocardio_panorama_tpu_torch.ops.roi import roi_align_1d, roi_align_ramp, roi_pool_1d, roi_reverse_1d
+from electrocardio_panorama_tpu_torch.ops.staging import STAGED, PinnedStaging
 from electrocardio_panorama_tpu_torch.ops.theta import angular_encode, theta_feature_dim
 
 __all__ = [
@@ -28,6 +30,8 @@ __all__ = [
     "MEASURED",
     "GRAPHED",
     "GraphedTrain",
+    "STAGED",
+    "PinnedStaging",
     "ATTENTION",
     "gelu",
     "layer_norm",

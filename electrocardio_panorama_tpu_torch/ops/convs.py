@@ -155,10 +155,13 @@ def linear(x, weight, bias=None):
 def dropout_mask(shape, rate: float, generator: torch.Generator, *, dtype=torch.float32,
                  device=None) -> torch.Tensor:
     """Pre-scaled inverted-dropout mask: 0 with probability `rate`, else
-    1/(1-rate), drawn from `generator` (which fixes the device)."""
+    1/(1-rate) rounded to `dtype`, drawn from `generator` (which fixes the
+    device). The scale is a Python float, rounded to `dtype` on the host: a
+    multiply by it copies nothing to the device, so drawing a mask never
+    waits for the card."""
     keep = 1.0 - rate
     u = torch.rand(shape, generator=generator, device=device or generator.device)
-    return (u < keep).to(dtype) * torch.tensor(1.0 / keep, dtype=dtype, device=u.device)
+    return (u < keep).to(dtype) * torch.tensor(1.0 / keep, dtype=dtype).item()
 
 
 def dropout(x, rate: float, mask: torch.Tensor | None, train: bool):

@@ -22,6 +22,9 @@ the caller names it.
     (seed, epoch, step), and the standin shuffle indices from a per-epoch
     numpy stream, so a resume at an epoch reproduces both streams, and the
     fused and eager encoders see the same masks;
+  * every step's arrays reach a CUDA device through the Solver's ring of
+    pinned slots (ops/staging.py), queued behind the previous step's work:
+    no call of a step's inputs waits for the card to drain;
   * under TPU.mesh_shape, data parallelism over torch.distributed, one
     process per device (parallel/): each rank steps on its slice of the
     global batch with its rows of the full-batch masks, the eager decoder's
@@ -57,7 +60,7 @@ import numpy as np
 import torch
 
 from electrocardio_panorama_tpu_torch.models import build_loss, build_model
-from electrocardio_panorama_tpu_torch.ops import angular_encode, full_f32
+from electrocardio_panorama_tpu_torch.ops import PinnedStaging, angular_encode, full_f32
 from electrocardio_panorama_tpu_torch.ops.kernels.decoder_train import make_train_decode_fn
 from electrocardio_panorama_tpu_torch.parallel import (
     BatchStatSync,
@@ -171,6 +174,7 @@ class Solver:
         self.rank0 = process_index() == 0
         self.writer = ScalarWriter(os.path.join(cfg.output_dir, "tf_logs")
                                    if use_writer and self.desc != "debug" and self.rank0 else None)
+        self._staging = PinnedStaging(self.device)
         if self.model.classifier:  # no fused function: the step and the eval are the classifier's
             self.train_encoder = self.train_decoder = self.eval_decoder = "xla"
             self._train_enc_fn = self._train_dec_fn = self._eval_enc_fn = None
@@ -245,7 +249,10 @@ class Solver:
         return full_f32() if not self.mixed else contextlib.nullcontext()
 
     def _tensors(self, batch: dict, keys) -> list[torch.Tensor]:
-        return [torch.as_tensor(np.asarray(batch[k])).to(self.device, non_blocking=True) for k in keys]
+        """The batch's arrays on the device, queued behind the stream's work
+        through pinned slots on CUDA (`ops.staging`), so the step's inputs
+        never wait for the card to drain."""
+        return self._staging.tensors(batch, keys)
 
     # ---------------------------------------------------------------- state
     def init_state(self):
